@@ -1,11 +1,11 @@
 """Sliding-window bundle adjustment + pose-graph backend.
 
 Absent in the reference (pure frame-to-frame chaining, SURVEY.md §1);
-required by BASELINE configs #4/#5. TPU-native formulation:
+required by BASELINE configs #4/#5. Formulation:
 
 * Fixed-shape dense observation grid: M keyframes x N landmarks with a
   visibility mask — residuals (M, N, 2), Jacobians (M, N, 2, 6)/(2, 3)
-  computed with closed-form expressions, everything batched (MXU).
+  computed with closed-form expressions, everything batched.
 * Because each observation couples exactly one pose and one landmark,
   the Gauss-Newton Hessian has block structure: B (per-pose 6x6 blocks,
   block-diagonal), C (per-landmark 3x3, embarrassingly parallel

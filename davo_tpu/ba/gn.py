@@ -76,3 +76,50 @@ def ba_refine(problem: BAProblem, cfg: BAConfig) -> BAProblem:
         return ba_iteration(p, cfg)
 
     return jax.lax.fori_loop(0, cfg.max_iterations, body, problem)
+
+
+def synthetic_problem(
+    seed: int, M: int = 4, N: int = 64, noise: float = 0.3,
+    pose_noise: float = 0.02, point_noise: float = 0.05,
+) -> BAProblem:
+    """A BA window with known structure, made from `seed`: M cameras
+    on a line (small random rotations) looking at N landmarks at
+    z ~ 6-10 through a 128x96 pinhole; observations with pixel noise,
+    poses (all but the two gauge anchors) and landmarks perturbed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[100.0, 0, 64], [0, 100.0, 48], [0, 0, 1]])
+    pts = rng.uniform([-4, -3, 6], [4, 3, 10], size=(N, 3))
+    xi = np.concatenate(
+        [
+            np.stack([np.arange(M) * 0.5 - M * 0.25] + [np.zeros(M)] * 2, 1),
+            rng.normal(0, 0.02, (M, 3)),
+        ],
+        axis=1,
+    )
+    poses_cw = np.linalg.inv(np.asarray(geo.se3_exp(jnp.asarray(xi))))
+    pix, z = res.project_points(
+        jnp.asarray(poses_cw, jnp.float32),
+        jnp.asarray(pts, jnp.float32),
+        jnp.asarray(K, jnp.float32),
+    )
+    pix = np.asarray(pix)
+    mask = (
+        (np.asarray(z) > 0.1)
+        & (pix[..., 0] >= 0) & (pix[..., 0] <= 127)
+        & (pix[..., 1] >= 0) & (pix[..., 1] <= 95)
+    )
+    kick = np.array(geo.se3_exp(jnp.asarray(rng.normal(0, pose_noise, (M, 6)))))
+    kick[:2] = np.eye(4)  # the first two poses are gauge anchors
+    return BAProblem(
+        poses_cw=jnp.asarray(kick @ poses_cw, jnp.float32),
+        points_w=jnp.asarray(
+            pts + rng.normal(0, point_noise, pts.shape), jnp.float32
+        ),
+        K=jnp.asarray(K, jnp.float32),
+        observations=jnp.asarray(
+            pix + rng.normal(0, noise, pix.shape), jnp.float32
+        ),
+        mask=jnp.asarray(mask, jnp.float32),
+    )

@@ -10,7 +10,7 @@ Reduced camera system: S = B - E C^-1 E^T  (6M x 6M dense),
   rhs_p' = rhs_p - E C^-1 rhs_l;  solve S dx_p = rhs_p';
   dx_l = C^-1 (rhs_l - E^T dx_p)   (parallel per landmark).
 
-All contractions are einsums -> MXU. The landmark dimension N is the
+All contractions are einsums (matrix units). The landmark dimension N is the
 axis `ba/sharded.py` distributes; every reduction over N below becomes
 a psum there.
 """
@@ -103,13 +103,12 @@ def solve_windows_batched(J_pose, J_point, residuals, weights,
     J_point (K, M, N, 2, 3), residuals (K, M, N, 2), weights
     (K, M, N). Returns (dx_pose (K, M, 6), dx_point (K, N, 3)).
 
-    Rationale (results_r5_ba_sol.json): a single window solve at
-    sliding-window sizes is FIXED-OVERHEAD-bound — micro-FLOP work
-    through a ~ms chain of tiny ops, each paying the per-fusion
-    dispatch floor. vmap amortizes that floor across windows: the op
-    count stays constant while every op's batch grows K-fold, so
-    K-window throughput approaches K / (single-window time) only
-    until the MXU fills — the honest scaling lever for multi-window
+    Rationale: a single window solve at sliding-window sizes is bound
+    by fixed overhead — little arithmetic through a chain of tiny ops,
+    each paying a per-kernel launch floor. vmap amortizes that floor
+    across windows: the op count stays constant while every op's
+    batch grows K-fold, so K-window throughput approaches
+    K / (single-window time) until the device fills — the honest scaling lever for multi-window
     refinement (e.g. the sliding-window eval over a long sequence).
     """
     import jax

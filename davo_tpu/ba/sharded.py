@@ -7,13 +7,13 @@ is sharded over the mesh's 'window' axis. Per shard_map rank:
     parallel, as is C^-1 (per-landmark 3x3);
   * partial B, E C^-1 E^T, and rhs contributions — reduced with a
     single psum of the tiny (M, M, 6, 6) S and (M, 6) rhs (the only
-    communication per iteration; rides ICI);
+    communication per iteration);
   * the reduced pose solve (<= 6M x 6M) is computed identically on
     every device (cheaper than solve-on-one + broadcast at this size);
   * landmark back-substitution stays local.
 
-On a multi-host pod the 'window' axis spans hosts: the psum crosses
-DCN once per GN iteration with O(M^2) payload — independent of the
+On a multi-host cluster the 'window' axis spans hosts: the psum
+crosses the host network once per GN iteration with O(M^2) payload — independent of the
 number of landmarks, which is what makes the partitioning scale.
 """
 

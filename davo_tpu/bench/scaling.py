@@ -1,9 +1,9 @@
 """Scaling-efficiency harness: same per-device work, growing mesh.
 
-BASELINE target: >= 80 % scaling efficiency at N >= 2 hosts. On the
-1-chip sandbox this runs on fake CPU devices (functional check + the
-numbers pipeline); on a pod it measures the real thing with no code
-change (weak scaling: global batch = per_device_batch * n_devices).
+BASELINE target: >= 80 % scaling efficiency at N >= 2 hosts. On
+virtual CPU devices this is a functional check of the numbers
+pipeline; on a multi-device machine it measures the real thing with
+no code change (weak scaling: global batch = per_device_batch * n_devices).
 """
 
 from __future__ import annotations

@@ -1,57 +1,6 @@
-"""Speed-of-light accounting: FLOP/byte rooflines per component.
-
-BASELINE requires per-chip SoL claims for the conv-attention forward
-and the BA linear solve. These helpers compute analytic FLOP/byte
-counts; `conv_stack_sol` compares a measured time against the v5e
-roofline (bf16 MXU peak and HBM bandwidth below; adjust per chip).
-"""
+"""Analytic FLOP counts of the pose path (hold on any device)."""
 
 from __future__ import annotations
-
-from dataclasses import dataclass
-
-V5E_BF16_TFLOPS = 197.0
-V5E_HBM_GBPS = 819.0
-
-
-@dataclass
-class SolReport:
-    flops: float
-    bytes_accessed: float
-    compute_bound_us: float
-    memory_bound_us: float
-    roofline_us: float
-    measured_us: float | None = None
-
-    @property
-    def sol_fraction(self) -> float | None:
-        if self.measured_us is None:
-            return None
-        return self.roofline_us / self.measured_us
-
-
-def conv_stack_sol(
-    shapes: list[tuple], measured_ms: float | None = None
-) -> SolReport:
-    """shapes: [(B, H, W, Cin, Cout, k, stride), ...] per layer."""
-    flops = 0.0
-    bytes_accessed = 0.0
-    for (B, H, W, cin, cout, k, s) in shapes:
-        oh, ow = -(-H // s), -(-W // s)
-        flops += 2.0 * B * oh * ow * k * k * cin * cout
-        bytes_accessed += 2.0 * B * H * W * cin  # bf16 in
-        bytes_accessed += 2.0 * B * oh * ow * cout  # bf16 out
-        bytes_accessed += 4.0 * k * k * cin * cout  # f32 weights
-    compute_us = flops / (V5E_BF16_TFLOPS * 1e12) * 1e6
-    memory_us = bytes_accessed / (V5E_HBM_GBPS * 1e9) * 1e6
-    return SolReport(
-        flops=flops,
-        bytes_accessed=bytes_accessed,
-        compute_bound_us=compute_us,
-        memory_bound_us=memory_us,
-        roofline_us=max(compute_us, memory_us),
-        measured_us=None if measured_ms is None else measured_ms * 1000.0,
-    )
 
 
 def model_flops(cfg) -> float:

@@ -20,7 +20,7 @@ class ModelConfig:
     seq_length: int = 3          # frames per snippet (odd, middle = target)
     num_scales: int = 4          # disparity / loss pyramid levels
     num_seg_classes: int = 19    # Cityscapes classes for region attention
-    # Network widths (reference-family sizes, lane-aligned where cheap).
+    # Network widths (reference-family sizes).
     pose_channels: tuple = (16, 32, 64, 128, 256, 256, 256)
     disp_channels: tuple = (32, 64, 128, 256, 512, 512, 512)
     # DispNet encoder family (SURVEY.md R5: the reference's nets.py
@@ -47,27 +47,21 @@ class ModelConfig:
     # independently-moving objects whose two-view flows disagree. A
     # constant-velocity dynamic object fools symmetric-flow cues but
     # not this one. Costs a second flow-net pass (train-time cue
-    # quality vs ~2x flow compute); flag-gated pending the TPU
-    # ablation (exp_attention_ablation --cue flow_fb).
+    # quality vs ~2x flow compute); flag-gated pending an ablation.
     attention_cue: str = "flow"
     # Evaluate the channel-starved FIRST stride-2 convs (posenet enc0:
     # 9ch 7x7; flownet feat0a: 3ch 3x3) through the exact
     # space-to-depth rewrite (models/common.conv_same_stride2_s2d) —
-    # same params, same math, 4x the MXU contraction depth. The r4
-    # profile puts the largest single device op at posenet enc0
-    # (700 us/call, results_r4_serving_bites.json). CLOSED NEGATIVE
-    # on chip (results_r4_s2d.json): equality holds but the rewrite
-    # measures 0.74-0.81x of XLA's native lowering at B=128/256 —
-    # the pad/reshape/layout costs outweigh the MXU gain on this
-    # stack. Stays available for other shapes; default off.
+    # same params, same math, 4x the contraction depth. Default off:
+    # it has not been measured on the GPU.
     s2d_first_conv: bool = False
     # Pose head: "conv" = the reference's learned regression head;
     # "geo_hybrid" = dense GN solve of pose from the finest pyramid
     # flow + DispNet depth (models/geopose.py), with the conv head as
-    # a learned residual. CANDIDATE, not validated: its first chip
-    # arms lost to the conv head (results_r4_quality_geo.json, rot
+    # a learned residual. CANDIDATE, not validated: its first trained
+    # arms lost to the conv head (results_r4_quality_geo.json at cf6389d, rot
     # corr ~0); the r5 GT-flow oracle shows the solve itself is exact
-    # at these defaults (results_r5_geo_oracle.json), leaving
+    # at these defaults (results_r5_geo_oracle.json at cf6389d), leaving
     # predicted-flow quality as the open bottleneck.
     # geo_hybrid requires attention != "none" and K passed to apply.
     pose_head: str = "conv"
@@ -81,85 +75,17 @@ class ModelConfig:
     geo_pose_robust: float = 2.0   # Huber IRLS delta, level pixels
     geo_pose_step_clip: float = 0.5  # per-iteration trust region (6-vec norm)
     pose_scale: float = 0.01     # output scaling, reference convention
-    compute_dtype: str = "bfloat16"  # params stay f32; compute in bf16 (MXU)
-    # Fused-kernel compute mode, independent of the XLA path's
-    # compute_dtype ("" = follow compute_dtype). "bf16_dot" keeps the
-    # in-kernel scratch f32 and casts only the MXU dot operands to
-    # bf16 — the candidate rewrite for Mosaic's "Bad lhs type"
-    # rejection of the bf16 chains (kernels/rowconv._DTYPE_MODES).
-    fuse_compute: str = ""
-    # Standalone the Pallas cost volume beats the XLA lowering, but
-    # in-context it blocks XLA fusion around it (measured r1: 3831 ->
-    # 2717 fps e2e). Off by default until the fused estimator kernel
-    # absorbs it (r2).
-    use_pallas: bool = False
-    # Serving-only: run each flow estimator's 4-conv chain as ONE
-    # fused Pallas kernel in rows layout (kernels/rowconv.py) instead
-    # of 4 XLA convs. Same parameters either way (init always builds
-    # the XLA tree); pallas_call has no VJP, so keep False for
-    # training. Flag-gated pending hardware validation of the rows
-    # layout (exp_conv2d_chain phases 1-2).
-    fuse_estimator: bool = False
-    # TRAINABLE fused estimator: conv_chain_nhwc_ad runs the same
-    # 4-conv chain with a hand-written Pallas VJP (forward emits
-    # per-layer activations as residuals; the whole backward — relu',
-    # db, dW taps, transposed-conv dx — is one more kernel). Grads ==
-    # XLA to 1e-3 rel (tests). Unlike the serving flags this may be on
-    # during training; flag-gated pending hardware validation.
-    fuse_estimator_train: bool = False
-    # Serving-only, one step further: the WHOLE flow level — cost
-    # volume + ReLU + concat + estimator chain — as one Pallas kernel
-    # per level (kernels/rowconv.flow_level_fused), ~55 dispatches ->
-    # 1 at search=3. Same param tree; no VJP; requires
-    # flow_est_bottleneck == 0. Supersedes fuse_estimator +
-    # costvol_impl="pallas_rows" when set.
-    fuse_flow_level: bool = False
-    # TRAINABLE whole-flow-level fusion: flow_level_fused_ad runs the
-    # same one-kernel level with a hand-written VJP (backward = chain
-    # reverse + cost-volume transpose to BOTH feature maps, one
-    # kernel). Grads == XLA composite (tests). Requires
-    # flow_est_bottleneck == 0; may be on during training.
-    fuse_flow_level_train: bool = False
-    # Serving-only: run the PoseEncoder's stride-2 stack (the even-dim
-    # fusable prefix — 5 of 7 layers at 128x416) as ONE Pallas kernel
-    # (kernels/rowconv.conv_chain_strided, in-kernel space-to-depth);
-    # the odd-dim tail runs via XLA. Same param tree; no VJP. The
-    # attention=none floor is 4.26 ms for 0.35 GF (r2c profile) —
-    # dispatch-bound, which is exactly what this collapses.
-    fuse_pose_encoder: bool = False
-    # Serving-only: RegionAttention's 3x stride-2 conv stack as one
-    # Pallas kernel (same mechanism; fully fusable at even inputs).
-    fuse_attention: bool = False
-    # Serving-only: the whole FlowNetLite feature-pyramid ladder
-    # ((s2, s1) x flow_levels) as one multi-output Pallas kernel
-    # (conv_chain_strided taps). Requires every s2 layer to see even
-    # dims (holds at 128x416); falls back to XLA otherwise.
-    fuse_pyramid: bool = False
-    # TRAINABLE variants of the three backbone fusions above:
-    # conv_chain_strided_ad's hand-written VJP (one backward kernel —
-    # window dW dots, transposed-window dx, depth-to-space across
-    # stride boundaries, per-tap cotangent injection). Grads == XLA
-    # (tests); may be on during training.
-    fuse_pose_encoder_train: bool = False
-    fuse_attention_train: bool = False
-    fuse_pyramid_train: bool = False
-    # DispNet "conv" encoder ((s2, s1) pairs with skip taps — the
-    # pyramid pattern): serving + trainable fused variants. The
-    # even-dim prefix fuses (5 of 7 levels at 128x416); the tail and
-    # the skip-concat decoder stay on XLA. No effect on the resnet
-    # encoder.
-    fuse_disp_encoder: bool = False
-    fuse_disp_encoder_train: bool = False
-    # Cost-volume lowering: "slices" = (2s+1)^2 fused VPU multiply-
-    # reduces; "scan" = the same computation as ONE lax.scan over
-    # shifts (kernel-count bound, r2c profile); "gram" = per-row-shift
-    # channel Gram matmuls on the MXU with strided-slice diagonal
-    # extraction; "patches" = one conv_general_dilated_patches op +
-    # one einsum contraction; "pallas_rows" = ALL slices in one Pallas
-    # kernel in 2-D rows layout (no transpose/matmul inside — see
-    # kernels/costvol.py), the r3 candidate for the ~33 us/slice-kernel
-    # dispatch cost. All produce identical outputs.
-    costvol_impl: str = "slices"
+    compute_dtype: str = "bfloat16"  # params stay f32; compute in bf16
+    # Cost-volume lowering: "slices" = (2s+1)^2 fused multiply-
+    # reduces (the XLA reference); "scan" = the same computation as ONE
+    # lax.scan over shifts; "gram" = per-row-shift channel Gram matmuls
+    # with strided-slice diagonal extraction; "patches" = one
+    # conv_general_dilated_patches op + one einsum contraction;
+    # "pallas" = the fused correlation kernel of kernels/costvol.py
+    # when lowering for CUDA, "slices" elsewhere. All produce the same
+    # outputs. "pallas" is the default: on an H100 it cut serving time
+    # at both presets and left the train step unchanged (PERF.md).
+    costvol_impl: str = "pallas"
     # >0: shared learned 1x1 projection of both feature maps to this
     # many channels before correlation (LiteFlowNet-style). The
     # costvol cost scales with C (pyramid features are 32-96 ch);
@@ -189,7 +115,7 @@ class TrainConfig:
     # (min with the unwarped-source residual; static/dynamic pixels
     # hit the identity floor and stop pushing depth/pose). "valid":
     # mask out-of-frame pixels and normalize by the valid count; KEEPS
-    # a degenerate optimum (empty mask -> loss 0: a TPU run collapsed
+    # a degenerate optimum (empty mask -> loss 0: a training run collapsed
     # into it by warping everything out of frame) — ablation only.
     photo_masking: str = "border"
     # Full-resolution multi-scale sampling (Monodepth2 Sec. 3.3):
@@ -199,8 +125,8 @@ class TrainConfig:
     # low-res photometric errors imprint on coarse disparities (the
     # coarse scales otherwise learn to mimic the blurred image, not
     # geometry). Costs num_scales full-res warps per source (~1.6x
-    # photometric-loss FLOPs); train-time only. Flag-gated pending TPU
-    # e2e validation (training-dynamics conclusions need chip runs).
+    # photometric-loss FLOPs); train-time only. Flag-gated pending an
+    # end-to-end quality run.
     photo_fullres: bool = False
     # SC-SfMLearner-style per-image mean normalization of depth inside
     # the photometric + geometry-consistency losses (unsupervised
@@ -226,12 +152,12 @@ class TrainConfig:
     # driver of trajectory-scale drift in the unsupervised regime
     # (t_err on long sequences). >0 enables (and makes the model
     # predict source-frame disparities in the same folded DispNet
-    # pass). MEASURED ON CHIP (exp_unsup_geo, r3): 0.5 cuts unsup
+    # pass). MEASURED in trained arms (exp_unsup_geo, r3): 0.5 cuts unsup
     # snippet ATE 0.911 -> 0.698 (-23 %, 1.05x supervised parity) at
     # equal t_err; with depth_norm also on, t_err 62.4 -> 54.6
     # (snippet 0.726). DEFAULT 0.5 since r4 (VERDICT r3 weak #5: the
     # validated recipe must BE the default); the r4 anchors
-    # (results_r4_quality.json, wander worlds) are measured with it.
+    # (results_r4_quality.json at cf6389d, wander worlds) are measured with it.
     # depth_norm stays opt-in: it trades snippet ATE (0.698 -> 0.726)
     # for long-horizon t_err (61.6 -> 54.6) and must never be combined
     # with pose supervision (GT translation fights the
@@ -239,16 +165,12 @@ class TrainConfig:
     geo_consistency_weight: float = 0.5
     # Resolution at which each flow level's photometric term is
     # evaluated: "full" upsamples every level's flow and warps the
-    # full-res source (r1-r3 behavior); "level" warps an avg-pooled
-    # source at the level's own resolution (PWC-family convention).
-    # PERF: the full-res bilinear gather warp is the train step's
-    # dominant cost — flow_losses own 742 of 1,170 ms/step at B=64
-    # 128x416 (results_r4_train_prof3.json); "level" removes ~63 % of
-    # the step (1,170 -> 447 ms measured). Default flipped to "level"
-    # after the on-chip quality gate passed (exp_quality_ladder4
-    # wander_tiny_flowlevel == wander_tiny: t_err 30.93 vs 30.50,
-    # r_err 12.84 vs 12.64, snippet 0.854 vs 0.845 — within the
-    # arm-to-arm noise band; results_r4_quality.json).
+    # full-res source; "level" warps an avg-pooled source at the
+    # level's own resolution (PWC-family convention), which removes
+    # the full-res warps that dominated the train step. "level" became
+    # the default after a same-window twin-arm quality gate found it
+    # within the arm-to-arm noise of "full" (results_r4_quality.json at cf6389d
+    # at commit cf6389d).
     flow_loss_res: str = "level"
     # >0: supervised Charbonnier end-point error on exact GT flow per
     # pyramid level (losses.flow_supervision_loss; needs a dataset
@@ -260,17 +182,12 @@ class TrainConfig:
     flow_supervision_weight: float = 0.0
     # Bilinear-gather implementation for the loss-path warps
     # (core/warp.bilinear_sample): "take4" (exact, XLA gathers),
-    # "block" ((2,2,C) lax.gather — loses in context, ablation only),
-    # "banded" (gather-free Pallas shift-accumulate kernel,
-    # kernels/bandwarp.py — exact within warp_band, band-edge-clamped
-    # beyond; 458 -> 194 ms/step at the flagship train shape). "auto"
-    # resolves at make_train_step time: an explicit DAVO_WARP_GATHER
-    # env wins, else per backend — "banded" on TPU since the r5
-    # quality gate passed (results_r5_warp_gate.json: banded beats
-    # take4 on t_err/r_err/snippet in same-window twin arms; see
-    # train/loop._AUTO_TPU_GATHER for the batch-dependent speed
-    # note), "take4" on CPU (the interpret-mode Pallas path is for
-    # kernel tests, not training).
+    # "block" ((2,2,C) lax.gather), "banded" (take4 after clamping each
+    # sample's displacement into warp_band = (rv, rh): exact within the
+    # band, band-edge-clamped beyond). "auto" = the DAVO_WARP_GATHER
+    # env if set, else "banded": in same-window twin arms the band
+    # clamp beat take4 on every quality metric (t_err 21.96 vs 23.34;
+    # results_r5_warp_gate.json at cf6389d at commit cf6389d).
     warp_gather: str = "auto"
     warp_band: tuple = (4, 16)
     pose_supervision_weight: float = 0.0  # >0 enables GT-pose auxiliary loss
@@ -281,7 +198,7 @@ class TrainConfig:
     rot_weight: float = 10.0
     # Rematerialize the forward in the backward pass (jax.checkpoint):
     # trades ~1/3 more FLOPs for dropping all forward activations from
-    # HBM, so batch size can grow at fixed memory. Same gradients.
+    # device memory, so batch size can grow. Same gradients.
     remat: bool = False
     checkpoint_every: int = 5_000
     log_every: int = 100

@@ -1,14 +1,14 @@
 """SE(3)/SO(3) geometry, camera models, and trajectory algebra.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 * Everything is a pure function on `jnp` arrays with static shapes; all
   functions broadcast over arbitrary leading batch dimensions so they can
   be `vmap`-ped / sharded freely.
 * Rotations near the identity use Taylor-guarded closed forms (no
   data-dependent branching — `jnp.where` keeps XLA control-flow free).
 * Trajectory chaining uses `jax.lax.associative_scan` over 4x4 matmul so
-  a 4.5k-frame KITTI sequence composes in O(log N) depth on the MXU and
+  a 4.5k-frame KITTI sequence composes in O(log N) depth as batched matmuls and
   can later be distributed with a ring scan (SURVEY.md §2.2 P4).
 
 Reference parity (behavior, not code): `<ref>/utils.py` `euler2mat`,
@@ -455,7 +455,7 @@ def trajectory_from_relatives(rel_mats: jnp.ndarray, T0: jnp.ndarray | None = No
     ``poses[k+1] = poses[k] @ rel_mats[k]``.
 
     Uses `lax.associative_scan` (matmul is associative) => O(log N) depth,
-    MXU-friendly; reference does a sequential Python loop
+    matmul-friendly; reference does a sequential Python loop
     (`<ref>/kitti_eval`, SURVEY.md R14).
     """
     if T0 is None:

@@ -3,7 +3,7 @@
 Reference parity: the DAVO/GeoNet-family loss mixes L1 with SSIM
 (`<ref>/davo.py`, SURVEY.md R4 [H]). Implemented with 3x3 average
 pooling (the SfMLearner-family convention) as pure `lax.reduce_window`
-ops, which XLA fuses tightly on TPU.
+ops, which XLA fuses tightly.
 """
 
 from __future__ import annotations

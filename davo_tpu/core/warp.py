@@ -2,22 +2,18 @@
 
 The hot op of the photometric training loss (reference:
 `<ref>/utils.py` `projective_inverse_warp` + `bilinear_sampler`,
-SURVEY.md §3.1 HOT LOOP). TPU-first design:
+SURVEY.md §3.1 HOT LOOP).
 
-* Images are NHWC (channels-last = TPU lane dimension).
-* The sampling gather is ONE `lax.gather` of a (2, 2, C) footprint per
-  output pixel (4x fewer gather indices than the classic four flat
-  `take_along_axis` taps): XLA's TPU gather cost is per-INDEX, so the
-  block form runs 1.39x faster fwd / 1.30x faster grad at the
-  production loss shape while staying bit-identical in weights
-  (results_r4_warp_probe.json: fwd maxerr 1.2e-7, d/d(coords) maxerr
-  5.7e-14 vs the tap formulation, on chip). The tap formulation is
-  kept as `method="take4"` for A/B probes.
+* Images are NHWC.
 * Out-of-bounds handling is branch-free: coordinates are clamped for
   the gather and a validity mask is returned alongside. `fill`
   selects whether invalid samples are zeroed ("zeros") or keep the
   edge-clamped value ("border", the loss path — see
   `bilinear_sample` on the empty-mask degeneracy).
+* The gather is four flat `take_along_axis` taps ("take4", exact) or
+  one (2, 2, C) `lax.gather` per pixel ("block", same values). The
+  "banded" method clamps each sample's displacement into a band
+  before the take4 gather (see `bilinear_sample`).
 """
 
 from __future__ import annotations
@@ -30,20 +26,11 @@ from jax import lax
 
 from davo_tpu.core import geometry as geo
 
-# Module default: "take4" (four flat take_along_axis taps) — the
-# exact gather, used by every non-training context (tests, eval
-# utilities, CPU). TRAINING resolves its own policy through
-# TrainConfig.warp_gather via train/loop._apply_warp_config: "banded"
-# on TPU since the r5 quality gate (results_r5_warp_gate.json —
-# banded(4,16) beats take4 on every quality metric in same-window
-# twins, and is 2.36x faster at the flagship B=64 shape). The
-# (2,2,C)-block lax.gather variant won the ISOLATED micro-probe
-# (results_r4_warp_probe.json) but LOSES in the real train step —
-# 553.4 vs 458.3 ms/step at B=64 in the same window
-# (results_r4_train_prof3.json) — the in-context read wins per the
-# r3 protocol. "banded" selects the gather-free Pallas
-# shift-accumulate kernel (kernels/bandwarp.py; band via
-# DAVO_WARP_BAND="rv,rh").
+# Module default: "take4", the exact gather, used by every
+# non-training context. TRAINING resolves its own policy from
+# TrainConfig.warp_gather (train/loop.warp_policy) while its step is
+# traced. DAVO_WARP_GATHER / DAVO_WARP_BAND="rv,rh" override the
+# process default.
 _DEFAULT_GATHER = os.environ.get("DAVO_WARP_GATHER", "take4")
 _BAND = tuple(
     int(t) for t in os.environ.get("DAVO_WARP_BAND", "4,16").split(",")
@@ -54,9 +41,9 @@ def configure(gather: str | None = None,
               band: tuple[int, int] | None = None) -> None:
     """Set the process-wide default gather method / clamp band.
 
-    The training loop calls this from `make_train_step` to apply
-    `TrainConfig.warp_gather` (resolution order: explicit config >
-    DAVO_WARP_GATHER env > per-backend auto); harnesses may call it
+    The training loop applies `TrainConfig.warp_gather` through this
+    while its step is traced (resolution order: explicit config >
+    DAVO_WARP_GATHER env > "auto" = "banded"); harnesses may call it
     directly. `None` leaves the current value untouched.
     """
     global _DEFAULT_GATHER, _BAND
@@ -81,25 +68,47 @@ def bilinear_sample(
             family's padding mode). Losses use "border": a masked mean
             normalized by the valid count has a degenerate optimum at
             an EMPTY mask (warp everything out of frame -> loss 0 —
-            observed collapsing a TPU training run), while border
+            observed collapsing a training run), while border
             samples keep out-of-frame pixels penalized.
-    method: "block" (default; one (2,2,C) lax.gather per pixel),
-            "take4" (four flat take_along_axis taps), or "banded"
-            (gather-free Pallas kernel; exact within the configured
-            displacement band, band-edge-clamped beyond — VO loss
-            path only). block/take4 are identical; see module
-            docstring for the measured gaps.
+    method: "take4" (four flat take_along_axis taps), "block" (one
+            (2,2,C) lax.gather per pixel; same values), or "banded"
+            (take4 after clamping each sample's displacement from its
+            own pixel into the configured band (rv, rh): exact where
+            |du| <= rh and |dv| <= rv, the band edge beyond — VO loss
+            path only). The process default is "take4" unless
+            `configure` or DAVO_WARP_GATHER set another.
     Returns (sampled (B, Ho, Wo, C), valid (B, Ho, Wo, 1) in {0., 1.}).
     """
     m = method or _DEFAULT_GATHER
     if m == "block":
         return _bilinear_sample_block(img, coords, fill)
     if m == "banded":
-        from davo_tpu.kernels.bandwarp import banded_warp
-
-        return banded_warp(img, coords, rv=_BAND[0], rh=_BAND[1],
-                           fill=fill)
+        return _bilinear_sample_take4(
+            img, coords, fill, band=(_BAND[0], _BAND[1])
+        )
     return _bilinear_sample_take4(img, coords, fill)
+
+
+def band_clamp(
+    coords: jnp.ndarray, rv: int, rh: int, height: int, width: int
+) -> jnp.ndarray:
+    """Clamp each (u, v) sample to within (rh, rv) pixels of its own
+    output pixel, then into the frame:
+    uc = clip(clip(u - x, -rh, rh) + x, 0, W - 1), likewise v.
+
+    A value exactly on a bound passes through with gradient 1 (where
+    `jnp.clip` would split it), so gradients equal take4's everywhere
+    inside the band, the band's edge and the frame's edge included."""
+    Ho, Wo = coords.shape[-3], coords.shape[-2]
+    x = jnp.arange(Wo, dtype=coords.dtype)[None, :]
+    y = jnp.arange(Ho, dtype=coords.dtype)[:, None]
+    u = _clamp(_clamp(coords[..., 0] - x, -rh, rh) + x, 0.0, width - 1.0)
+    v = _clamp(_clamp(coords[..., 1] - y, -rv, rv) + y, 0.0, height - 1.0)
+    return jnp.stack([u, v], axis=-1)
+
+
+def _clamp(a: jnp.ndarray, lo: float, hi: float) -> jnp.ndarray:
+    return jnp.where(a < lo, lo, jnp.where(a > hi, hi, a))
 
 
 def _bilinear_sample_block(
@@ -148,20 +157,24 @@ def _bilinear_sample_block(
 
 
 def _bilinear_sample_take4(
-    img: jnp.ndarray, coords: jnp.ndarray, fill: str
+    img: jnp.ndarray, coords: jnp.ndarray, fill: str,
+    band: tuple[int, int] | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     B, H, W, C = img.shape
     u = coords[..., 0]
     v = coords[..., 1]
+    valid = (
+        (u >= 0.0) & (u <= W - 1.0) & (v >= 0.0) & (v <= H - 1.0)
+    )[..., None].astype(img.dtype)
+    if band is not None:
+        # `valid` stays the in-frame test of the ORIGINAL coordinates.
+        clamped = band_clamp(coords, band[0], band[1], H, W)
+        u, v = clamped[..., 0], clamped[..., 1]
 
     u0 = jnp.floor(u)
     v0 = jnp.floor(v)
     du = (u - u0)[..., None]
     dv = (v - v0)[..., None]
-
-    valid = (
-        (u >= 0.0) & (u <= W - 1.0) & (v >= 0.0) & (v <= H - 1.0)
-    )[..., None].astype(img.dtype)
 
     u0c = jnp.clip(u0, 0, W - 1).astype(jnp.int32)
     v0c = jnp.clip(v0, 0, H - 1).astype(jnp.int32)
@@ -243,10 +256,6 @@ def flow_warp_separable(
     src: jnp.ndarray, flow: jnp.ndarray
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Gather-free flow warp: two banded one-hot MATMUL passes.
-
-    XLA lowers the per-pixel bilinear gather to ~10 M elem/s on this
-    TPU stack — measured 20 ms of the 31 ms flow-net forward (r2
-    subtractive profile). This formulation runs on the MXU instead:
 
       pass 1 (exact):  mid[b,y,x]  = sum_w  Wx[b,y,x,w] src[b,y,w]
       pass 2:          out[b,y,x]  = sum_h  Wy[b,y,x,h] mid[b,h,x]

@@ -2,7 +2,7 @@
 pipelines, and host->device prefetch.
 
 Reference parity: `<ref>/data_loader.py` + `<ref>/data/prepare_train_data.py`
-(SURVEY.md §2.1 R9/R11). TPU-first: the pipeline produces fixed-shape
+(SURVEY.md §2.1 R9/R11). The pipeline produces fixed-shape
 NHWC numpy batches on host and overlaps H2D transfer with compute via a
 double-buffered prefetcher; no TF queues.
 """

@@ -1,7 +1,7 @@
 """Host->device prefetch: overlap H2D transfer with device compute.
 
 The reference relies on TF1 queue runners (SURVEY.md R9); the
-TPU-native equivalent is a small double-buffered iterator that calls
+JAX equivalent is a small double-buffered iterator that calls
 `jax.device_put` (optionally with a `NamedSharding` so per-host batches
 land directly on the right mesh shards) one batch ahead of consumption,
 letting the copy overlap the previous step's compute.

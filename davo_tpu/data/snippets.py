@@ -4,7 +4,7 @@ Reference parity: `<ref>/data_loader.py` `load_train_batch` — 3-frame
 snippets (target = middle frame, sources = neighbors), per-snippet
 intrinsics, random scale/crop/color augmentation (SURVEY.md R9 [H]).
 
-TPU-first: batches are plain dicts of fixed-shape float32 numpy arrays
+Batches are plain dicts of fixed-shape float32 numpy arrays
 (NHWC) so every training step compiles once; augmentation runs on host
 in numpy; device transfer is handled by `prefetch.device_prefetch`.
 
@@ -388,7 +388,7 @@ class ProceduralWorldsDataset:
     stream). Memorizing textures is impossible — every gradient step
     eventually sees unseen worlds — which separates "can't read
     rotation from images" from "memorized the 16-world training set"
-    (the r4 generalization question, R4_RESULTS.md).
+    (the r4 generalization question, R4_RESULTS.md at cf6389d).
 
     world_factory(seed) -> a frame source (SyntheticSequence,
     DriveSequence, ...). Interface matches MultiSourceDataset:

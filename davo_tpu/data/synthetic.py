@@ -176,7 +176,7 @@ class SyntheticSequence:
             # their yaw rate is CONSTANT within a world, so a net that
             # regresses the dataset's rotation prior scores the same
             # rot-corr (~0) as one that reads rotation from the images
-            # (results_r3_quality3.json; VERDICT r3 missing #1). Here
+            # (results_r3_quality3.json at cf6389d; VERDICT r3 missing #1). Here
             # the per-frame rotation VARIES within the world — heading
             # rate omega(t) is a random 3-sinusoid signal of amplitude
             # `rot_amp` rad/frame and period ~`rot_period` frames — so

@@ -2,8 +2,7 @@
 multi-host bootstrap.
 
 The reference has no parallelism at all (1 process / 1 GPU,
-SURVEY.md §2.2 [H]); this layer is the TPU-native communication
-backend: named mesh axes ('data', 'model', 'window'), NamedSharding
+SURVEY.md §2.2 [H]); this layer is the communication backend: named mesh axes ('data', 'model', 'window'), NamedSharding
 rule tables, jit/GSPMD for the training step (XLA inserts psum), and
 explicit shard_map + collectives for the BA backend and ring pipelines.
 """

@@ -1,10 +1,10 @@
 """Multi-host bootstrap: jax.distributed initialization + helpers.
 
 The reference is strictly single-process (SURVEY.md §2.2 [H]); this is
-the pod-scale entry layer: one process per host, coordinator-based
+the multi-host entry layer: one process per host, coordinator-based
 rendezvous, per-host data sharding via `jax.make_array_from_process_
-local_data`. On a pod slice the mesh's outermost axis spans hosts
-(DCN); inner axes ride ICI. Testable without a cluster by launching N
+local_data`. On a cluster the mesh's outermost axis spans hosts;
+inner axes stay within a host's interconnect. Testable without a cluster by launching N
 local processes over loopback (tests/test_multiprocess.py).
 """
 

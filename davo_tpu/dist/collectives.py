@@ -72,7 +72,7 @@ def halo_exchange(x: jnp.ndarray, mesh: Mesh, axis: str = "data", halo: int = 1)
     right_halo holds the FIRST `halo` rows of chunk i+1 (zeros at the
     end). This is the boundary exchange of the CP/BA pipelines
     (SURVEY.md P4/P6): 1-frame overlap so every pairwise term is
-    computed on exactly one chip.
+    computed on exactly one device.
     """
     n = mesh.shape[axis]
 

@@ -5,8 +5,8 @@ Axes (SURVEY.md §5 "Distributed communication backend"):
   model  — tensor parallelism over channel dims (TP)
   window — BA keyframe-block partitioning (sliding-window backend)
 
-Collectives ride ICI within a slice; on multi-host pods the first
-(outermost) axis maps across hosts/DCN (JAX device ordering).
+Collectives stay within a host's interconnect; on multi-host clusters
+the first (outermost) axis maps across hosts (JAX device ordering).
 """
 
 from __future__ import annotations

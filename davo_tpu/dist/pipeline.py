@@ -3,7 +3,7 @@
 training (grads through the schedule, `make_pipeline_train_fns`).
 
 The reference is single-GPU and has no analog; this is a target-only
-capability tier. TPU-native design: a GPipe-style schedule written as
+capability tier. Design: a GPipe-style schedule written as
 `shard_map` over a 'stage' mesh axis — every device runs the same
 traced program, selects its stage's computation with `lax.switch`, and
 hands activations to the next stage with a ring `lax.ppermute` each

@@ -2,12 +2,12 @@
 
 SURVEY.md §2.2 P4: a KITTI odometry sequence (up to 4,541 frames) is
 processed as one sharded batch of consecutive frame pairs — contiguous
-chip-local chunks, nets replicated (BASELINE config #5 inference
+device-local chunks, nets replicated (BASELINE config #5 inference
 layout). Every relative pose T_{t->t+1} is computed on exactly one
-chip; the global trajectory is the all-prefix composition of SE(3)
+device; the global trajectory is the all-prefix composition of SE(3)
 increments, evaluated as `lax.associative_scan` over 4x4 matmul INSIDE
 the same jitted program — XLA/GSPMD turns the scan's cross-chunk hops
-into log-depth ICI collectives, so no host round-trip touches the
+into log-depth collectives, so no host round-trip touches the
 sequence axis.
 """
 
@@ -53,7 +53,7 @@ def make_streaming_eval(model, params, mesh: Mesh, attention: str = "none"):
         prefix = jax.lax.associative_scan(jnp.matmul, rels, axis=0)
         return vecs, prefix
 
-    def fn(frames: np.ndarray, seg: np.ndarray | None = None):
+    def place(frames: np.ndarray, seg: np.ndarray | None):
         n_pairs = len(frames) - 1
         axis = mesh.shape["data"]
         assert n_pairs % axis == 0, (
@@ -64,11 +64,16 @@ def make_streaming_eval(model, params, mesh: Mesh, attention: str = "none"):
         seg_dev = (
             jax.device_put(seg[1:], shard0) if seg is not None else None
         )
-        vecs, prefix = run(targets, sources, seg_dev)
+        return targets, sources, seg_dev
+
+    def fn(frames: np.ndarray, seg: np.ndarray | None = None):
+        vecs, prefix = run(*place(frames, seg))
         prefix = np.asarray(prefix)
         poses = np.concatenate([np.eye(4)[None], prefix], axis=0)
         return poses, np.asarray(vecs)
 
+    # AOT access to the sharded program (its partitioned HLO).
+    fn.lower = lambda frames, seg=None: run.lower(*place(frames, seg))
     return fn
 
 

@@ -34,12 +34,10 @@ def make_sharded_train_step(model, tx, cfg: Config, mesh: Mesh):
 
     batch leaves are dim-0-sharded over 'data'; state is replicated.
     XLA/GSPMD partitions the forward/backward and inserts the psum for
-    gradients — the TPU-native analog of the all-reduce data-parallel
-    wrapper the reference never had.
+    gradients — the all-reduce data-parallel wrapper the reference
+    never had.
     """
-    from davo_tpu.train.loop import _apply_warp_config
-
-    _apply_warp_config(cfg)  # same gather policy as the local step
+    from davo_tpu.train.loop import warp_policy
 
     def forward(params, target, sources, seg):
         # source_disp must mirror train/loop.py: without it the geo-
@@ -51,11 +49,15 @@ def make_sharded_train_step(model, tx, cfg: Config, mesh: Mesh):
         )
 
     if cfg.train.remat:
-        # Same HBM/FLOP trade as the single-device step (train/loop.py):
+        # Same memory/FLOP trade as the single-device step (train/loop.py):
         # activations recomputed in the backward pass.
         forward = jax.checkpoint(forward)
 
     def loss_fn(params, batch, step_i):
+        with warp_policy(cfg):  # same gather policy as the local step
+            return _loss(params, batch, step_i)
+
+    def _loss(params, batch, step_i):
         outputs = forward(
             params,
             batch["target"],
@@ -88,7 +90,7 @@ def make_sharded_train_step(model, tx, cfg: Config, mesh: Mesh):
     # invalidated bench/scaling timings).
     compiled = {}
 
-    def jitted(state, batch):
+    def jit_for(state, batch):
         key = tuple(sorted(batch))
         if key not in compiled:
             compiled[key] = jax.jit(
@@ -103,8 +105,14 @@ def make_sharded_train_step(model, tx, cfg: Config, mesh: Mesh):
                 ),
                 donate_argnums=0,
             )
-        return compiled[key](state, batch)
+        return compiled[key]
 
+    def jitted(state, batch):
+        return jit_for(state, batch)(state, batch)
+
+    # AOT access to the same program: `.lower(state, batch).compile()`
+    # gives the executable and its partitioned HLO.
+    jitted.lower = lambda state, batch: jit_for(state, batch).lower(state, batch)
     return jitted
 
 

@@ -162,3 +162,21 @@ def _snippet_stats(metric, gt, pred, snippet_len) -> tuple[float, float]:
     if not vals:
         return float("nan"), float("nan")
     return float(np.mean(vals)), float(np.std(vals))
+
+
+def mat_to_euler_np(R: np.ndarray) -> np.ndarray:
+    """(..., 3, 3) rotations -> (..., 3) Euler angles [rx, ry, rz]
+    (the package's pose-vector convention, core/geometry.py)."""
+    sy = np.clip(-R[..., 2, 0], -1 + 1e-7, 1 - 1e-7)
+    ry = np.arcsin(sy)
+    rx = np.arctan2(R[..., 2, 1], R[..., 2, 2])
+    rz = np.arctan2(R[..., 1, 0], R[..., 0, 0])
+    return np.stack([rx, ry, rz], -1)
+
+
+def rot_angle(m: np.ndarray) -> np.ndarray:
+    """Rotation angle in degrees of each (..., 4, 4) or (..., 3, 3)
+    transform. The trace is taken over the LAST two axes: np.trace's
+    default axes (0, 1) would trace over the batch of a stack."""
+    tr = np.trace(m[..., :3, :3], axis1=-2, axis2=-1)
+    return np.degrees(np.arccos(np.clip((tr - 1) / 2, -1.0, 1.0)))

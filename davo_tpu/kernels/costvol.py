@@ -1,13 +1,19 @@
-"""Fused correlation cost volume (Pallas TPU).
+"""Correlation cost volume: XLA reference and a fused GPU kernel.
 
 out[b, h, w, k] = mean_c f1[b, h, w, c] * f2[b, h+dy_k, w+dx_k, c]
 
-One grid step per batch element: f1 and the padded f2 live in VMEM;
-the (2d+1)^2 shifted multiply-reduces run back-to-back on the VPU with
-zero HBM round-trips (the XLA lowering writes every shifted product to
-HBM — measured 100x off roofline, see kernels/__init__). The kernel
-emits (K, H, W) per element (contiguous minor-dim tiles); the wrapper
-transposes to the (B, H, W, K) layout the flow estimator consumes.
+with (dy_k, dx_k) = divmod(k, 2s+1) - s and f2 zero outside the frame.
+
+`cost_volume_xla` is the plain lowering: (2s+1)^2 shifted slices of a
+padded f2, each multiplied with f1 and reduced over channels. XLA reads
+f1 and a shifted f2 once per displacement.
+
+`cost_volume_pallas` is the PWC-Net/FlowNet correlation layer as one
+Pallas kernel through Triton: one program per (batch, row) holds that
+row of f1 in registers and sweeps every displacement over the rows of
+f2 around it, so each output is written once and f1 is read once.
+`cost_volume` picks it when lowering for CUDA and the XLA form
+everywhere else; its gradient is the VJP of the XLA form.
 """
 
 from __future__ import annotations
@@ -17,133 +23,9 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-
-def _interpret() -> bool:
-    # Interpret mode lets the same kernels run (slowly) on CPU for tests.
-    return jax.default_backend() != "tpu"
-
-
-def _costvol_kernel(f1_ref, f2p_ref, out_ref, *, search: int, height: int, width: int):
-    d = 2 * search + 1
-    f1 = f1_ref[0].astype(jnp.float32)  # (H, W, C)
-    inv_c = 1.0 / f1.shape[-1]
-    for k in range(d * d):
-        dy, dx = divmod(k, d)
-        win = f2p_ref[0, dy : dy + height, dx : dx + width, :].astype(
-            jnp.float32
-        )
-        out_ref[0, k] = jnp.sum(f1 * win, axis=-1) * inv_c
-
-
-@partial(jax.jit, static_argnames=("search",))
-def cost_volume_pallas(
-    f1: jnp.ndarray, f2: jnp.ndarray, search: int
-) -> jnp.ndarray:
-    """(B, H, W, C) x2 -> (B, H, W, (2*search+1)^2), float32."""
-    B, H, W, C = f1.shape
-    d = 2 * search + 1
-    f2p = jnp.pad(
-        f2, ((0, 0), (search, search), (search, search), (0, 0))
-    )
-    out = pl.pallas_call(
-        partial(_costvol_kernel, search=search, height=H, width=W),
-        grid=(B,),
-        in_specs=[
-            pl.BlockSpec(
-                (1, H, W, C), lambda b: (b, 0, 0, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, H + 2 * search, W + 2 * search, C),
-                lambda b: (b, 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, d * d, H, W), lambda b: (b, 0, 0, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((B, d * d, H, W), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * B * d * d * H * W * C,
-            bytes_accessed=4 * B * H * W * (2 * C + d * d),
-            transcendentals=0,
-        ),
-        interpret=_interpret(),
-    )(f1, f2p)
-    return jnp.transpose(out, (0, 2, 3, 1))
-
-
-def _costvol_rows_kernel(
-    f1_ref, f2_ref, out_ref, scratch, *, height: int, width: int, search: int
-):
-    """All (2s+1)^2 correlation slices in ONE kernel, 2-D rows layout.
-
-    Activations stay (P, C) matrices (P = H*W row-major); the (dy, dx)
-    shifted view of f2 is the CONTIGUOUS row slice starting at
-    dy*W + dx of a zero-padded scratch, column wrap masked via iota —
-    no reshape, no transpose, no matmul inside the kernel, so it
-    side-steps both the Mosaic matmul-layout bug (kernels/conv_stack.py
-    STATUS) and the (B, K, H, W)->NHWC transpose that made
-    `cost_volume_pallas` lose in context (config.py use_pallas note).
-    Out-of-frame f2 contributes 0, matching the XLA slice loop.
-    """
-    P = height * width
-    pad = search * width + search
-    C = f1_ref.shape[2]
-    f1 = f1_ref[0].astype(jnp.float32)  # (P, C)
-    scratch[0:pad, :] = jnp.zeros((pad, C), jnp.float32)
-    scratch[pad : pad + P, :] = f2_ref[0].astype(jnp.float32)
-    scratch[pad + P : 2 * pad + P, :] = jnp.zeros((pad, C), jnp.float32)
-    col = jax.lax.broadcasted_iota(jnp.int32, (P, 1), 0) % width
-    cols = []
-    for dy in range(-search, search + 1):
-        for dx in range(-search, search + 1):
-            off = pad + dy * width + dx
-            tap = scratch[off : off + P, :]
-            corr = jnp.sum(f1 * tap, axis=1, keepdims=True) / C
-            valid = jnp.logical_and(col >= -dx, col < width - dx)
-            cols.append(jnp.where(valid, corr, 0.0))
-    out_ref[0] = jnp.concatenate(cols, axis=1).astype(out_ref.dtype)
-
-
-@partial(jax.jit, static_argnames=("search",))
-def cost_volume_pallas_rows(
-    f1: jnp.ndarray, f2: jnp.ndarray, search: int
-) -> jnp.ndarray:
-    """(B, H, W, C) x2 -> (B, H, W, (2*search+1)^2), float32.
-
-    Rows-layout single-kernel cost volume (see `_costvol_rows_kernel`).
-    The NHWC<->rows reshapes live OUTSIDE the kernel where XLA fuses
-    them. Select with `ModelConfig.costvol_impl = "pallas_rows"`.
-    """
-    B, H, W, C = f1.shape
-    P, D = H * W, (2 * search + 1) ** 2
-    pad = search * W + search
-    out = pl.pallas_call(
-        partial(_costvol_rows_kernel, height=H, width=W, search=search),
-        grid=(B,),
-        in_specs=[
-            pl.BlockSpec(
-                (1, P, C), lambda b: (b, 0, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, P, C), lambda b: (b, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, P, D), lambda b: (b, 0, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((B, P, D), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((P + 2 * pad, C), jnp.float32)],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * B * D * P * C,
-            bytes_accessed=4 * B * P * (2 * C + D),
-            transcendentals=0,
-        ),
-        interpret=_interpret(),
-    )(f1.reshape(B, P, C), f2.reshape(B, P, C))
-    return out.reshape(B, H, W, D)
+from jax.experimental.custom_partitioning import custom_partitioning
+from jax.experimental.pallas import triton as plgpu
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 
 def cost_volume_xla(f1: jnp.ndarray, f2: jnp.ndarray, search: int) -> jnp.ndarray:
@@ -158,8 +40,120 @@ def cost_volume_xla(f1: jnp.ndarray, f2: jnp.ndarray, search: int) -> jnp.ndarra
     return jnp.stack(slices, axis=-1)
 
 
-def cost_volume_auto(f1: jnp.ndarray, f2: jnp.ndarray, search: int) -> jnp.ndarray:
-    """Pallas on TPU, XLA elsewhere (tests run on CPU)."""
-    if jax.default_backend() == "tpu":
-        return cost_volume_pallas(f1, f2, search)
-    return cost_volume_xla(f1, f2, search)
+def _costvol_kernel(f1_ref, f2_ref, out_ref, *, search, H, W, C, BW, BC):
+    b = pl.program_id(0)
+    y = pl.program_id(1)
+    d = 2 * search + 1
+    xs = jnp.arange(BW)
+    cs = jnp.arange(BC)
+    x_in = xs < W
+    c_in = (cs < C)[None, :]
+    f1 = plgpu.load(
+        f1_ref.at[b, y, xs[:, None], cs[None, :]],
+        mask=x_in[:, None] & c_in, other=0.0,
+    ).astype(jnp.float32)
+    inv_c = 1.0 / C
+
+    def row(dy, carry):
+        yy = y + dy - search
+        y_in = (yy >= 0) & (yy < H)
+        yc = jnp.clip(yy, 0, H - 1)
+        for dx in range(d):
+            xx = xs + (dx - search)
+            m = y_in & (xx >= 0) & (xx < W)
+            win = plgpu.load(
+                f2_ref.at[b, yc, xx[:, None], cs[None, :]],
+                mask=m[:, None] & c_in, other=0.0,
+            ).astype(jnp.float32)
+            corr = jnp.sum(f1 * win, axis=1) * inv_c
+            plgpu.store(out_ref.at[b, y, dy * d + dx, xs], corr, mask=x_in)
+        return carry
+
+    jax.lax.fori_loop(0, d, row, 0)
+
+
+def cost_volume_pallas(
+    f1: jnp.ndarray, f2: jnp.ndarray, search: int, *, interpret: bool = False
+) -> jnp.ndarray:
+    """(B, H, W, C) x2 -> (B, H, W, (2*search+1)^2), float32.
+
+    Triton route. The row and channel tiles are the next powers of two
+    of W and C, masked at the edges. The kernel writes (B, H, K, W) so
+    that every store is a contiguous row; the transpose to the
+    estimator's NHWC layout fuses into the consumer.
+    """
+    B, H, W, C = f1.shape
+    d = 2 * search + 1
+    BW, BC = pl.next_power_of_2(W), pl.next_power_of_2(C)
+    out = pl.pallas_call(
+        partial(_costvol_kernel, search=search, H=H, W=W, C=C, BW=BW, BC=BC),
+        grid=(B, H),
+        out_shape=jax.ShapeDtypeStruct((B, H, d * d, W), jnp.float32),
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
+        backend="triton",
+        interpret=interpret,
+        name="cost_volume",
+    )(f1, f2)
+    return jnp.transpose(out, (0, 1, 3, 2))
+
+
+def batch_partitioned(fn):
+    """`fn(f1, f2, search)` as an op that SPMD partitioning splits over
+    the batch axis: each device runs `fn` on its own batch shard.
+
+    A kernel is an opaque custom call to the partitioner, which would
+    otherwise gather the whole batch onto every device and run the
+    kernel on all of it. Rows, columns and channels are gathered if
+    they were sharded: the window reaches across rows and columns.
+    """
+    op = custom_partitioning(
+        lambda f1, f2, search: fn(f1, f2, search), static_argnums=(2,)
+    )
+
+    def sharding(mesh, arg_shapes):
+        spec = arg_shapes[0].sharding.spec
+        return NamedSharding(mesh, P(spec[0] if len(spec) else None))
+
+    def infer(search, mesh, arg_shapes, result_shape):
+        return sharding(mesh, arg_shapes)
+
+    def partition(search, mesh, arg_shapes, result_shape):
+        s = sharding(mesh, arg_shapes)
+        return mesh, lambda a, b: fn(a, b, search), s, (s, s)
+
+    op.def_partition(
+        partition,
+        infer_sharding_from_operands=infer,
+        sharding_rule="b h w c, b h w c -> b h w k",
+        need_replication_factors=("h", "w", "c", "k"),
+    )
+    return op
+
+
+_cost_volume_cuda = batch_partitioned(cost_volume_pallas)
+
+
+@partial(jax.custom_vjp, nondiff_argnums=(2,))
+def cost_volume(f1: jnp.ndarray, f2: jnp.ndarray, search: int) -> jnp.ndarray:
+    """The Triton kernel when lowering for CUDA, `cost_volume_xla`
+    elsewhere. Differentiable: the backward is the XLA form's VJP.
+    Under a sharded jit each device runs the kernel on its own batch
+    shard (`batch_partitioned`)."""
+    return jax.lax.platform_dependent(
+        f1, f2,
+        cuda=lambda a, b: _cost_volume_cuda(a, b, search),
+        default=lambda a, b: cost_volume_xla(a, b, search).astype(jnp.float32),
+    )
+
+
+def _cost_volume_fwd(f1, f2, search):
+    return cost_volume(f1, f2, search), (f1, f2)
+
+
+def _cost_volume_bwd(search, res, g):
+    f1, f2 = res
+    _, vjp = jax.vjp(partial(cost_volume_xla, search=search), f1, f2)
+    return vjp(g.astype(jnp.result_type(f1, f2)))
+
+
+cost_volume.defvjp(_cost_volume_fwd, _cost_volume_bwd)

@@ -3,11 +3,10 @@
 out[b, p, c] = sum_{v, u} hat(v_p - v) hat(u_p - u) img[b, v, u, c]
 
 Expresses arbitrary-coordinate sampling as two small einsum
-contractions (MXU) instead of a gather. Only worthwhile for coarse
+contractions instead of a gather. Only worthwhile for coarse
 grids (P = H*W up to a few thousand): FLOPs scale as P*(H + W)*C.
-Kept as an alternative backend for the warp ops; the XLA gather path
-measured fast on current shapes (see kernels/__init__), so this is
-selected explicitly, not by default.
+Kept as an alternative backend for the warp ops, selected explicitly,
+not by default.
 """
 
 from __future__ import annotations

@@ -1,14 +1,15 @@
 """Model zoo: DispNet / PoseNet / FlowNet / dynamic region attention.
 
-Flax-linen re-designs of the reference networks (`<ref>/nets.py`,
-SURVEY.md R5-R7). TPU-first conventions shared by every module here:
+Re-designs of the reference networks (`<ref>/nets.py`, SURVEY.md
+R5-R7) on the small module layer of `models/layers.py`. Conventions
+shared by every module here:
 
-* NHWC activations; channels-last maps to the TPU lane dimension.
+* NHWC activations.
 * Parameters are float32; compute runs in `compute_dtype` (bfloat16 by
-  default) so convolutions hit the MXU at full rate; outputs that feed
+  default) so convolutions run on the tensor cores; outputs that feed
   geometry (poses, disparities) are cast back to float32.
 * No transposed convs: decoders upsample with nearest-resize + conv
-  (identical receptive field, better XLA/TPU lowering).
+  (identical receptive field, simpler lowering).
 * Static shapes everywhere; variants are selected by config, not
   runtime branching.
 """

@@ -11,73 +11,35 @@ Design here: `RegionAttention` maps flow -> 19 softmax weights
 (x num_classes so the mean weight is ~1 and the no-attention model is
 a fixed point), then `region_weight_map` projects them through the
 one-hot segmentation at feature resolution. The masked-fuse is an
-elementwise multiply — deliberately shaped so the seg-mask x features
-x weights pipeline can later drop into a single fused Pallas kernel
-(SURVEY.md §7.1 step 6).
+elementwise multiply.
 """
 
 from __future__ import annotations
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from davo_tpu.config import ModelConfig
+from davo_tpu.models import layers
 from davo_tpu.models.common import ConvBlock, dtype_of
 
 
-class RegionAttention(nn.Module):
+class RegionAttention(layers.Module):
     """Flow -> per-region attention weights (B, num_seg_classes)."""
 
     cfg: ModelConfig
 
-    @nn.compact
+    @layers.compact
     def __call__(self, flow: jnp.ndarray) -> jnp.ndarray:
         """flow: (B, H, W, F) flow/cue stack (e.g. fwd+bwd = 4 chans)."""
         dt = dtype_of(self.cfg.compute_dtype)
         x = flow.astype(dt)
         chans = (16, 32, 64)
-        start = 0
-        if (
-            self.cfg.fuse_attention or self.cfg.fuse_attention_train
-        ) and not self.is_initializing():
-            # Fused fast path: the stride-2 stack as one Pallas kernel
-            # (same mechanism + caveats as fuse_pose_encoder; the
-            # _train variant carries the hand-written VJP).
-            from davo_tpu.kernels.rowconv import (
-                conv_chain_strided,
-                conv_chain_strided_ad,
-                fusable_even_prefix,
-            )
-
-            n = fusable_even_prefix(
-                x.shape[1], x.shape[2], (2,) * len(chans)
-            )
-            if n:
-                p = self.variables["params"]
-                ws = tuple(
-                    p[f"conv{i}"]["Conv_0"]["kernel"] for i in range(n)
-                )
-                bs = tuple(
-                    p[f"conv{i}"]["Conv_0"]["bias"] for i in range(n)
-                )
-                fn = (
-                    conv_chain_strided_ad
-                    if self.cfg.fuse_attention_train
-                    else conv_chain_strided
-                )
-                x = fn(
-                    x, ws, bs, (2,) * n, (True,) * n,
-                    compute_dtype_name=(
-                        self.cfg.fuse_compute or self.cfg.compute_dtype
-                    ),
-                ).astype(dt)
-                start = n
-        for i in range(start, len(chans)):
+        for i in range(len(chans)):
             x = ConvBlock(chans[i], 3, 2, dt, name=f"conv{i}")(x)
         x = jnp.mean(x, axis=(1, 2)).astype(jnp.float32)  # (B, 64)
-        x = nn.relu(nn.Dense(64, name="fc0")(x))
-        logits = nn.Dense(self.cfg.num_seg_classes, name="fc1")(x)
+        x = jax.nn.relu(layers.Dense(64, name="fc0")(x))
+        logits = layers.Dense(self.cfg.num_seg_classes, name="fc1")(x)
         # Softmax * K: sums to K, mean 1 -> uniform weights == identity.
         return jax.nn.softmax(logits, axis=-1) * self.cfg.num_seg_classes
 

@@ -2,8 +2,11 @@
 
 from __future__ import annotations
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
+from jax import lax
+
+from davo_tpu.models import layers
 
 
 def dtype_of(name: str):
@@ -11,17 +14,14 @@ def dtype_of(name: str):
 
 
 def conv_same_stride2_s2d(x, kernel, bias, dtype):
-    """Evaluate `nn.Conv(O, (k, k), strides=2, padding='SAME')` via
-    space-to-depth: EXACTLY the same math, MXU-friendlier shape.
+    """Evaluate `Conv(O, (k, k), strides=2, padding='SAME')` via
+    space-to-depth: EXACTLY the same math, a deeper contraction.
 
     The first convs of the pose/flow encoders contract over 3-9 input
-    channels — a tiny fraction of the MXU's 128-wide contraction
-    lanes; the r4 serving profile puts the single largest device op
-    there (posenet enc0: 700 us/call at B=128,
-    results_r4_serving_bites.json fusion.3). Folding each 2x2 input
-    phase block into channels (C -> 4C, H,W -> H/2,W/2) and running
-    the algebraically-equivalent stride-1 conv with the rearranged
-    kernel quadruples the contraction depth for the same FLOPs.
+    channels. Folding each 2x2 input phase block into channels
+    (C -> 4C, H,W -> H/2,W/2) and running the algebraically-equivalent
+    stride-1 conv with the rearranged kernel quadruples the
+    contraction depth for the same FLOPs.
 
     Derivation: pad the input with SAME's (k-2) total padding and the
     kernel with zeros to even K2 = 2*ceil(k/2); split kernel taps
@@ -48,8 +48,6 @@ def conv_same_stride2_s2d(x, kernel, bias, dtype):
     w8 = jnp.pad(kernel, ((0, K2 - k), (0, K2 - k), (0, 0), (0, 0)))
     wn = w8.reshape(K2 // 2, 2, K2 // 2, 2, C, O)
     wn = wn.transpose(0, 2, 1, 3, 4, 5).reshape(K2 // 2, K2 // 2, 4 * C, O)
-    import jax.lax as lax
-
     out = lax.conv_general_dilated(
         s.astype(dtype),
         wn.astype(dtype),
@@ -60,8 +58,8 @@ def conv_same_stride2_s2d(x, kernel, bias, dtype):
     return out + bias.astype(dtype)
 
 
-class ConvBlock(nn.Module):
-    """Conv + ReLU in compute dtype (params f32, autocast by linen).
+class ConvBlock(layers.Module):
+    """Conv + ReLU in compute dtype (params f32, cast at the conv).
 
     s2d=True (stride-2 only): evaluate through the exact
     space-to-depth rewrite above, reading the SAME `Conv_0` params —
@@ -75,9 +73,9 @@ class ConvBlock(nn.Module):
     dtype: jnp.dtype = jnp.bfloat16
     s2d: bool = False
 
-    @nn.compact
+    @layers.compact
     def __call__(self, x):
-        conv = nn.Conv(
+        conv = layers.Conv(
             self.features,
             (self.kernel, self.kernel),
             strides=(self.stride, self.stride),
@@ -99,7 +97,7 @@ class ConvBlock(nn.Module):
             )
         else:
             y = conv(x)
-        return nn.relu(y)
+        return jax.nn.relu(y)
 
 
 def upsample2(x: jnp.ndarray) -> jnp.ndarray:
@@ -114,8 +112,7 @@ def upsample2(x: jnp.ndarray) -> jnp.ndarray:
 def resize_nearest(x: jnp.ndarray, hw: tuple[int, int]) -> jnp.ndarray:
     """Nearest 2x upsample + crop to an exact (H, W).
 
-    Gather-free (broadcast-reshape + slice; `jax.image.resize` lowers
-    to a slow TPU gather). Handles the odd sizes a stride-2 SAME
+    Gather-free (broadcast-reshape + slice). Handles the odd sizes a stride-2 SAME
     encoder produces at 416-wide inputs: every decoder target is
     ceil(2x_source/2), so 2x-then-crop reaches it exactly.
     """

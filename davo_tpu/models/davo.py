@@ -17,11 +17,11 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax.numpy as jnp
 
 from davo_tpu.config import ModelConfig
 from davo_tpu.kernels.resize import resize_bilinear_aligned
+from davo_tpu.models import layers
 from davo_tpu.models.attention import (
     RegionAttention,
     region_weight_map,
@@ -32,7 +32,7 @@ from davo_tpu.models.flownet import FlowNetLite
 from davo_tpu.models.posenet import PoseNet
 
 
-class DavoModel(nn.Module):
+class DavoModel(layers.Module):
     cfg: ModelConfig
 
     def setup(self):
@@ -184,7 +184,7 @@ class DavoModel(nn.Module):
             # above becomes a learned RESIDUAL on the geometric
             # estimate (it initializes near zero via pose_scale).
             # CANDIDATE, not validated: the first chip arms lost to
-            # the conv head (results_r4_quality_geo.json, rot corr
+            # the conv head (results_r4_quality_geo.json at cf6389d, rot corr
             # ~0); the r5 oracle proves the solve exact on GT flow at
             # the (step-clipped) defaults, so predicted-flow quality
             # is the open bottleneck (flow_supervision_weight).

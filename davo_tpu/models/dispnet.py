@@ -4,16 +4,16 @@ Reference parity: `disp_net` in `<ref>/nets.py` (SURVEY.md R5 [H]) —
 7-level conv encoder, skip-connected decoder, multi-scale sigmoid
 disparity heads, depth = 1/(DISP_SCALING * sigmoid + MIN_DISP).
 
-TPU-first: NHWC, bf16 compute, nearest-upsample+conv decoder.
+NHWC, bf16 compute, nearest-upsample+conv decoder.
 """
 
 from __future__ import annotations
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from davo_tpu.config import ModelConfig
+from davo_tpu.models import layers
 from davo_tpu.models.common import (
     ConvBlock,
     dtype_of,
@@ -63,7 +63,7 @@ def disp_to_depth_ref(disp: jnp.ndarray) -> jnp.ndarray:
     return 1.0 / (DISP_SCALING * disp + MIN_DISP)
 
 
-class ResBlock(nn.Module):
+class ResBlock(layers.Module):
     """Pre-ReLU residual basic block (two 3x3 convs + projection
     shortcut on stride/width change). No norm layers, matching the
     conv encoder's norm-free design."""
@@ -72,27 +72,27 @@ class ResBlock(nn.Module):
     stride: int = 1
     dtype: jnp.dtype = jnp.bfloat16
 
-    @nn.compact
+    @layers.compact
     def __call__(self, x):
-        h = nn.Conv(
+        h = layers.Conv(
             self.features, (3, 3), strides=(self.stride, self.stride),
             padding="SAME", dtype=self.dtype, param_dtype=jnp.float32,
             name="conv1",
         )(x)
-        h = nn.relu(h)
-        h = nn.Conv(
+        h = jax.nn.relu(h)
+        h = layers.Conv(
             self.features, (3, 3), padding="SAME", dtype=self.dtype,
             param_dtype=jnp.float32, name="conv2",
         )(h)
         if self.stride != 1 or x.shape[-1] != self.features:
-            x = nn.Conv(
+            x = layers.Conv(
                 self.features, (1, 1), strides=(self.stride, self.stride),
                 dtype=self.dtype, param_dtype=jnp.float32, name="proj",
             )(x)
-        return nn.relu(x + h)
+        return jax.nn.relu(x + h)
 
 
-class DispNet(nn.Module):
+class DispNet(layers.Module):
     """Multi-scale disparity: returns `num_scales` maps, full-res first.
 
     Each output is a sigmoid in (0, 1); callers use `disp_to_depth`.
@@ -104,58 +104,14 @@ class DispNet(nn.Module):
 
     cfg: ModelConfig
 
-    @nn.compact
+    @layers.compact
     def __call__(self, img: jnp.ndarray) -> list[jnp.ndarray]:
         dt = dtype_of(self.cfg.compute_dtype)
         x = img.astype(dt)
 
         # Encoder: one stride-2 level per configured width.
         skips = []
-        start = 0
-        if (
-            (self.cfg.fuse_disp_encoder or self.cfg.fuse_disp_encoder_train)
-            and not self.is_initializing()
-            and self.cfg.disp_encoder == "conv"
-        ):
-            # Fused fast path: the even-dim prefix of the (s2, s1)
-            # ladder as ONE Pallas kernel, every level emitted via
-            # taps (the skips). Same mechanism + caveats as
-            # fuse_pyramid; the _train variant carries the
-            # hand-written VJP with per-tap cotangent injection.
-            from davo_tpu.kernels.rowconv import (
-                conv_chain_strided,
-                conv_chain_strided_ad,
-                fusable_even_prefix,
-            )
-
-            strides = (2, 1) * len(self.cfg.disp_channels)
-            n_pairs = (
-                fusable_even_prefix(x.shape[1], x.shape[2], strides) // 2
-            )
-            if n_pairs:
-                p = self.variables["params"]
-                ws, bs = [], []
-                for i in range(n_pairs):
-                    for suf in ("", "b"):
-                        ws.append(p[f"enc{i}{suf}"]["Conv_0"]["kernel"])
-                        bs.append(p[f"enc{i}{suf}"]["Conv_0"]["bias"])
-                fn = (
-                    conv_chain_strided_ad
-                    if self.cfg.fuse_disp_encoder_train
-                    else conv_chain_strided
-                )
-                outs = fn(
-                    x, tuple(ws), tuple(bs), strides[: 2 * n_pairs],
-                    (True,) * (2 * n_pairs),
-                    taps=tuple(2 * i + 1 for i in range(n_pairs)),
-                    compute_dtype_name=(
-                        self.cfg.fuse_compute or self.cfg.compute_dtype
-                    ),
-                )
-                skips = [o.astype(dt) for o in outs]
-                x = skips[-1]
-                start = n_pairs
-        for i, ch in list(enumerate(self.cfg.disp_channels))[start:]:
+        for i, ch in enumerate(self.cfg.disp_channels):
             if self.cfg.disp_encoder == "resnet":
                 if i == 0:  # stem: large receptive field, like the 7x7
                     x = ConvBlock(ch, 7, 2, dt, name=f"enc{i}")(x)
@@ -187,10 +143,10 @@ class DispNet(nn.Module):
             x = ConvBlock(ch, 3, 1, dt, name=f"dec{i}b")(x)
             level = len(up_channels) - 1 - i  # 0 = full res
             if level < self.cfg.num_scales:
-                disp = nn.Conv(
+                disp = layers.Conv(
                     1, (3, 3), padding="SAME", dtype=dt,
                     param_dtype=jnp.float32, name=f"disp{level}",
                 )(x)
-                disps.append(nn.sigmoid(disp.astype(jnp.float32)))
+                disps.append(jax.nn.sigmoid(disp.astype(jnp.float32)))
         # Built coarse->fine; return fine->coarse (scale 0 first).
         return disps[::-1]

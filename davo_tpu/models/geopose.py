@@ -3,14 +3,14 @@
 The learned conv pose head regresses pose from image features — the
 r4 quality ladders measured that this does NOT generalize rotation
 across held-out worlds (pred-vs-GT rot corr ~0 on wander AND drive
-worlds while the overfit micro-test reaches 0.96, R4_RESULTS.md): the
+worlds while the overfit micro-test reaches 0.96, R4_RESULTS.md at cf6389d): the
 head memorizes textures instead of reading the motion field. Rotation
 is, however, a GEOMETRIC functional of the flow field — depth enters
 only through translation — so solving for the pose that best explains
 the predicted flow CAN generalize across textures. STATUS: candidate,
-not validated — the first chip arms LOST to the conv head (rot corr
-~0, t_err 26.1 vs 22.6 %, results_r4_quality_geo.json). The r5
-GT-flow oracle (results_r5_geo_oracle.json) splits the blame: the
+not validated — the first trained arms LOST to the conv head (rot corr
+~0, t_err 26.1 vs 22.6 %, results_r4_quality_geo.json at cf6389d). The r5
+GT-flow oracle (results_r5_geo_oracle.json at cf6389d) splits the blame: the
 solve itself is exact on GT flow once step-clipped (see
 `pose_from_flow`), so the open bottleneck is PREDICTED-flow quality —
 attacked via flow supervision (TrainConfig.flow_supervision_weight).
@@ -21,7 +21,7 @@ attacked via flow supervision (TrainConfig.flow_supervision_weight).
 
 with X(x) = Z(x) K^-1 x_h, run a fixed number of iterations (static
 control flow, jit-friendly: each iteration is two einsum contractions
-to a (B, 6, 6) system + a batched 6x6 solve — MXU/VPU work, no
+to a (B, 6, 6) system + a batched 6x6 solve — dense work, no
 scatter/gather). Gradients flow to `flow`, `depth` and `weight`, so
 training through this head supervises the flow net geometrically.
 
@@ -77,7 +77,7 @@ def pose_from_flow(
     weight: optional (B, H, W) per-pixel confidence (>= 0); in-frame
             validity of x + u is always applied on top
     step_clip: >0 caps each GN update's 6-vector norm (trust region).
-            Measured (results_r5_geo_oracle.json): on drive worlds a
+            Measured (results_r5_geo_oracle.json at cf6389d): on drive worlds a
             few % of GT-flow pairs DIVERGE under unclipped GN from
             identity (overshoot; max err 9 deg at iters=4-16) and only
             re-converge by ~20 iterations; with step_clip=0.5 every

@@ -11,17 +11,17 @@ plain and the attention configurations.
 
 from __future__ import annotations
 
-import flax.linen as nn
 import jax.numpy as jnp
 
 from davo_tpu.config import ModelConfig
+from davo_tpu.models import layers
 from davo_tpu.models.common import ConvBlock, dtype_of
 
 
-class PoseEncoder(nn.Module):
+class PoseEncoder(layers.Module):
     cfg: ModelConfig
 
-    @nn.compact
+    @layers.compact
     def __call__(self, pair: jnp.ndarray) -> jnp.ndarray:
         dt = dtype_of(self.cfg.compute_dtype)
         x = pair.astype(dt)
@@ -29,44 +29,7 @@ class PoseEncoder(nn.Module):
             7 if i == 0 else (5 if i == 1 else 3)
             for i in range(len(self.cfg.pose_channels))
         ]
-        start = 0
-        if (
-            self.cfg.fuse_pose_encoder or self.cfg.fuse_pose_encoder_train
-        ) and not self.is_initializing():
-            # Fused fast path: the even-dim prefix of the stride-2
-            # stack as ONE Pallas kernel (kernels/rowconv, in-kernel
-            # s2d), reading the SAME params the XLA path trains. Init
-            # always runs the XLA path so the tree is identical.
-            # fuse_pose_encoder has no VJP (serving only, CLI-guarded);
-            # the _train variant uses the hand-written-VJP kernel.
-            from davo_tpu.kernels.rowconv import (
-                conv_chain_strided,
-                conv_chain_strided_ad,
-                fusable_even_prefix,
-            )
-
-            n = fusable_even_prefix(x.shape[1], x.shape[2], (2,) * len(ks))
-            if n:
-                p = self.variables["params"]
-                ws = tuple(
-                    p[f"enc{i}"]["Conv_0"]["kernel"] for i in range(n)
-                )
-                bs = tuple(
-                    p[f"enc{i}"]["Conv_0"]["bias"] for i in range(n)
-                )
-                fn = (
-                    conv_chain_strided_ad
-                    if self.cfg.fuse_pose_encoder_train
-                    else conv_chain_strided
-                )
-                x = fn(
-                    x, ws, bs, (2,) * n, (True,) * n,
-                    compute_dtype_name=(
-                        self.cfg.fuse_compute or self.cfg.compute_dtype
-                    ),
-                ).astype(dt)
-                start = n
-        for i in range(start, len(ks)):
+        for i in range(len(ks)):
             x = ConvBlock(
                 self.cfg.pose_channels[i], ks[i], 2, dt, name=f"enc{i}",
                 s2d=(i == 0 and self.cfg.s2d_first_conv),
@@ -74,20 +37,20 @@ class PoseEncoder(nn.Module):
         return x
 
 
-class PoseHead(nn.Module):
+class PoseHead(layers.Module):
     cfg: ModelConfig
 
-    @nn.compact
+    @layers.compact
     def __call__(self, features: jnp.ndarray) -> jnp.ndarray:
         dt = dtype_of(self.cfg.compute_dtype)
-        x = nn.Conv(
+        x = layers.Conv(
             6, (1, 1), dtype=dt, param_dtype=jnp.float32, name="pose_head"
         )(features)
         pose = jnp.mean(x.astype(jnp.float32), axis=(1, 2))
         return pose * self.cfg.pose_scale
 
 
-class PoseNet(nn.Module):
+class PoseNet(layers.Module):
     """6-DoF pose of source w.r.t. target from a concatenated pair.
 
     Output convention: `[tx, ty, tz, rx, ry, rz] * pose_scale`, the

@@ -47,14 +47,11 @@ register(  # ResNet disp encoder (reference's disp_net_res variant)
 )
 register(
     # Production-serving config: full attention pipeline with three
-    # measured-quality-neutral perf knobs. r2e sweep (14.4 -> 10.1 ms
-    # at B=128): learned 8-ch correlation projection + search range 3
-    # — r3 ablation shows they also IMPROVE quality (snippet 0.59 vs
-    # 0.78, r_err inversion fixed; attention_ablation_r3.json). r3:
-    # flow_levels=3 (+10.1 % serving fps), gated quality-neutral at
-    # full res (ladder2 res128 L3 37.02 %/0.706 vs L4 37.50 %/0.686,
-    # results_r3_quality2.json) and already the davo-small/tiny
-    # default.
+    # cheaper settings that quality runs found neutral or better:
+    # learned 8-ch correlation projection + search range 3 (snippet
+    # ATE 0.59 vs 0.78, attention_ablation_r3.json) and flow_levels=3
+    # (ladder2 res128 L3 37.02 %/0.706 vs L4 37.50 %/0.686,
+    # results_r3_quality2.json at cf6389d); records at commit cf6389d.
     "davo-fast",
     _base(
         attention="flow_seg", costvol_feat_channels=8,

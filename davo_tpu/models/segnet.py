@@ -12,8 +12,7 @@ or weights required.
 Architecture mirrors DispNet's conv family (stride-2 ConvBlock encoder,
 skip-connected nearest-upsample decoder) at a fraction of the width —
 segmentation for attention cueing needs region shapes, not boundary
-precision. TPU-first: NHWC, bf16 compute / f32 params, gather-free
-upsampling.
+precision. NHWC, bf16 compute / f32 params, gather-free upsampling.
 """
 
 from __future__ import annotations
@@ -21,21 +20,21 @@ from __future__ import annotations
 import json
 import os
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from davo_tpu.models import layers
 from davo_tpu.models.common import ConvBlock, dtype_of, resize_nearest
 
 
-class SegNetLite(nn.Module):
+class SegNetLite(layers.Module):
     """Per-pixel class logits: (B, H, W, 3) -> (B, H, W, num_classes)."""
 
     num_classes: int = 19
     channels: tuple = (16, 32, 64, 128)
     compute_dtype: str = "bfloat16"
 
-    @nn.compact
+    @layers.compact
     def __call__(self, img: jnp.ndarray) -> jnp.ndarray:
         dt = dtype_of(self.compute_dtype)
         x = img.astype(dt)
@@ -59,7 +58,7 @@ class SegNetLite(nn.Module):
             if skip_idx >= 0:
                 x = jnp.concatenate([x, skips[skip_idx]], axis=-1)
             x = ConvBlock(ch, 3, 1, dt, name=f"dec{i}b")(x)
-        logits = nn.Conv(
+        logits = layers.Conv(
             self.num_classes, (3, 3), padding="SAME", dtype=dt,
             param_dtype=jnp.float32, name="head",
         )(x)
@@ -67,16 +66,15 @@ class SegNetLite(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Checkpoint I/O: msgpack params + json meta — self-contained, no
+# Checkpoint I/O: npz params + json meta — self-contained, no
 # training-state baggage (prep-time inference needs params only).
 # ---------------------------------------------------------------------------
 
 def save_segnet(directory: str, model: SegNetLite, params) -> None:
-    import flax.serialization
+    from davo_tpu.train.checkpoint import save_tree
 
     os.makedirs(directory, exist_ok=True)
-    with open(os.path.join(directory, "segnet.msgpack"), "wb") as f:
-        f.write(flax.serialization.to_bytes(params))
+    save_tree(os.path.join(directory, "segnet.npz"), params)
     with open(os.path.join(directory, "segnet.json"), "w") as f:
         json.dump(
             {
@@ -90,8 +88,7 @@ def save_segnet(directory: str, model: SegNetLite, params) -> None:
 
 
 def load_segnet(directory: str) -> tuple[SegNetLite, dict]:
-    import flax.serialization
-    import numpy as np
+    from davo_tpu.train.checkpoint import load_tree
 
     with open(os.path.join(directory, "segnet.json")) as f:
         meta = json.load(f)
@@ -100,14 +97,13 @@ def load_segnet(directory: str) -> tuple[SegNetLite, dict]:
         channels=tuple(meta["channels"]),
         compute_dtype=meta["compute_dtype"],
     )
-    # Template init at a tiny shape: msgpack restore only needs the
-    # tree structure; shapes come from the serialized bytes.
-    template = model.init(
-        jax.random.key(0), jnp.zeros((1, 32, 32, 3), jnp.float32)
+    # Parameter shapes do not depend on the image size: a template
+    # traced at a tiny shape (no compute) fixes the tree to restore.
+    template = jax.eval_shape(
+        model.init, jax.random.key(0),
+        jax.ShapeDtypeStruct((1, 32, 32, 3), jnp.float32),
     )
-    with open(os.path.join(directory, "segnet.msgpack"), "rb") as f:
-        params = flax.serialization.from_bytes(template, f.read())
-    params = jax.tree.map(np.asarray, params)
+    params = load_tree(os.path.join(directory, "segnet.npz"), template)
     return model, params
 
 

@@ -3,7 +3,8 @@
 Reference parity: the loss construction in `<ref>/davo.py`
 `build_train_graph` (photometric L1+SSIM across source->target warps,
 multi-scale edge-aware disparity smoothness, Adam) — SURVEY.md R4 [H] —
-re-designed as pure jitted step functions over flax/optax/orbax.
+re-designed as pure jitted step functions over optax, with npz
+checkpoints (train/checkpoint.py).
 """
 
 from davo_tpu.train.losses import (  # noqa: F401

@@ -1,4 +1,4 @@
-"""Train state, jitted train step, fit loop, Orbax checkpointing.
+"""Train state, jitted train step, fit loop, checkpointing.
 
 Replaces the reference's `tf.train.Supervisor` session loop + `Saver`
 (`<ref>/train.py`, SURVEY.md §3.1 / §5). One jitted step function —
@@ -8,22 +8,25 @@ sharded variant lives in `dist/` (same step fn under a mesh).
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
 import time
 from functools import partial
 from typing import Any, Callable, Iterable
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import optax
 
 from davo_tpu.config import Config
 from davo_tpu.models.davo import DavoModel
+from davo_tpu.train.checkpoint import CheckpointManager
 from davo_tpu.train.losses import total_loss
 
 
-@flax.struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class TrainState:
     params: Any
     opt_state: Any
@@ -71,47 +74,40 @@ def create_state(
     return model, state, tx
 
 
-# What `TrainConfig.warp_gather="auto"` means on a TPU backend.
-# "banded" since the r5 on-chip quality gate (exp_warp_gate,
-# results_r5_warp_gate.json): same-window twin arms at davo-small
-# 128x416 put banded(4,16) AHEAD of take4 on every quality metric
-# (t_err 21.96 vs 23.34, r_err 7.02 vs 7.49, snippet 0.547 vs 0.582;
-# take4 reproduced the r4 anchor bit-exactly, so the gap is the
-# deterministic effect of the band clamp robustifying large-
-# displacement photometric gradients, not arm noise). Speed is
-# batch-dependent: 2.36x FASTER at the flagship B=64 train shape
-# (194 vs 458 ms/step, results_r4_train_prof3.json), 1.2x slower at
-# the gate's B=8 protocol (648 vs 539 ms/step) — the default serves
-# the production shape; pin warp_gather="take4" for small-batch runs
-# where that 20 % matters more than the quality edge.
-_AUTO_TPU_GATHER = "banded"
-
-
 def _apply_warp_config(cfg: Config) -> None:
     """Resolve cfg.train.warp_gather into the process-wide default.
 
-    Explicit config beats the DAVO_WARP_GATHER env, which beats the
-    per-backend auto policy (banded is a TPU kernel; CPU training and
-    the driver's virtual-mesh dryrun stay on the exact XLA gather)."""
+    An explicit config value beats the DAVO_WARP_GATHER env, which
+    beats "auto" = "banded" (config.py warp_gather)."""
     from davo_tpu.core import warp as warp_mod
 
     g = cfg.train.warp_gather
     if g == "auto":
         if "DAVO_WARP_GATHER" in os.environ:
             return  # env already seeded the module default at import
-        g = (
-            _AUTO_TPU_GATHER
-            if jax.default_backend() == "tpu"
-            else "take4"
-        )
+        g = "banded"
     warp_mod.configure(g, tuple(cfg.train.warp_band))
+
+
+@contextlib.contextmanager
+def warp_policy(cfg: Config):
+    """Apply cfg's warp policy while a train step is traced, then
+    restore the process default, so the training policy does not leak
+    into other warps of the process."""
+    from davo_tpu.core import warp as warp_mod
+
+    saved = (warp_mod._DEFAULT_GATHER, warp_mod._BAND)
+    _apply_warp_config(cfg)
+    try:
+        yield
+    finally:
+        warp_mod.configure(*saved)
 
 
 def make_train_step(
     model: DavoModel, tx: optax.GradientTransformation, cfg: Config
 ) -> Callable:
     """Returns jitted (state, batch) -> (state, metrics)."""
-    _apply_warp_config(cfg)
 
     def forward(params, target, sources, seg, K):
         return model.apply(
@@ -121,13 +117,17 @@ def make_train_step(
         )
 
     if cfg.train.remat:
-        # HBM/FLOP trade (SURVEY §7.0 design stance): drop the forward
-        # activations and recompute them in the backward pass, so
-        # batch (and with it MXU utilization) can grow at fixed HBM.
+        # Memory/FLOP trade: drop the forward activations and
+        # recompute them in the backward pass, so batch can grow at
+        # fixed device memory.
         # Grads are bit-comparable to the unremat'd step (tested).
         forward = jax.checkpoint(forward)
 
     def loss_fn(params, batch, step_i):
+        with warp_policy(cfg):
+            return _loss(params, batch, step_i)
+
+    def _loss(params, batch, step_i):
         outputs = forward(
             params,
             batch["target"],
@@ -155,19 +155,13 @@ def make_train_step(
 
 
 # ---------------------------------------------------------------------------
-# Checkpointing (Orbax): params + opt state + step, async-committed.
+# Checkpointing: params + opt state + step (train/checkpoint.py).
 # ---------------------------------------------------------------------------
 
-def make_checkpoint_manager(directory: str, max_to_keep: int = 3):
-    import orbax.checkpoint as ocp
-
-    os.makedirs(directory, exist_ok=True)
-    return ocp.CheckpointManager(
-        os.path.abspath(directory),
-        options=ocp.CheckpointManagerOptions(
-            max_to_keep=max_to_keep, create=True
-        ),
-    )
+def make_checkpoint_manager(
+    directory: str, max_to_keep: int = 3
+) -> CheckpointManager:
+    return CheckpointManager(directory, max_to_keep=max_to_keep)
 
 
 def save_config(directory: str, cfg: Config) -> None:
@@ -191,19 +185,17 @@ def load_config(directory: str) -> dict | None:
         return json.load(f)
 
 
-def save_checkpoint(mngr, state: TrainState) -> None:
-    import orbax.checkpoint as ocp
-
-    mngr.save(int(state.step), args=ocp.args.StandardSave(state))
+def save_checkpoint(mngr: CheckpointManager, state: TrainState) -> None:
+    mngr.save(int(state.step), state)
 
 
-def restore_checkpoint(mngr, template: TrainState) -> TrainState | None:
-    import orbax.checkpoint as ocp
-
+def restore_checkpoint(
+    mngr: CheckpointManager, template: TrainState
+) -> TrainState | None:
     step = mngr.latest_step()
     if step is None:
         return None
-    return mngr.restore(step, args=ocp.args.StandardRestore(template))
+    return mngr.restore(step, template)
 
 
 # ---------------------------------------------------------------------------
@@ -269,5 +261,4 @@ def fit(
             break
     if mngr is not None:
         save_checkpoint(mngr, state)
-        mngr.wait_until_finished()
     return model, state, history

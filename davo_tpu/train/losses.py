@@ -10,7 +10,7 @@ fused by XLA inside the jitted train step. Reference semantics
   mean over all pixels with edge-clamped sampling. Two failure modes
   pinned by tests shaped this: the r1 valid-masked mean has a
   degenerate optimum at an empty mask (everything warped out of
-  frame -> loss 0; collapsed a TPU run; kept for ablation behind
+  frame -> loss 0; collapsed a training run; kept for ablation behind
   `photo_masking="valid"`), and a per-source border-filled mean
   biases depth toward infinity (border charge on large parallax;
   saturated depth at the 100 m cap in e2e) — the min over symmetric
@@ -233,7 +233,7 @@ def geometry_consistency_loss(
         # Honor the SAME depth warm-up gate as photometric_loss: a
         # spatially-flat depth is a global optimum of this term alone,
         # so ungated it would actively reward the rail-to-cap collapse
-        # the warm-up exists to prevent (r2 TPU bistability).
+        # the warm-up exists to prevent (r2 training bistability).
         sg_t = jax.lax.stop_gradient(depth_t)
         depth_t = sg_t + depth_grad_scale * (depth_t - sg_t)
         sg_s = jax.lax.stop_gradient(depth_s_all)
@@ -303,13 +303,9 @@ def flow_losses(
       "level" — warp an avg-pooled source pyramid at each level's own
                 resolution (the PWC-family convention). Flow values
                 are already in level-pixel units, so no upsample or
-                rescale is needed. This exists for PERFORMANCE: the
-                full-res bilinear gather warp is the train step's
-                dominant cost — measured 124 ms per full-res warp at
-                B=64 128x416 vs ~83 ms for the ENTIRE net fwd+bwd+Adam
-                (results_r4_train_prof3.json: flow_losses = 742 of
-                1,170 ms/step, 2 sources x 3 levels of full-res
-                warps). "level" cuts that term ~16-64x per level.
+                rescale is needed. This exists for PERFORMANCE: it
+                replaces 2 sources x 3 levels of full-res bilinear
+                gather warps with warps 16-64x smaller per level.
     """
     H, W = target.shape[1], target.shape[2]
     if res_mode == "level":
@@ -385,7 +381,7 @@ def flow_supervision_loss(
 
     Motivation (r5, VERDICT r4 #2): held-out rotation corr is ~0 in
     every photometric-trained arm while the GT-flow oracle solves pose
-    exactly (results_r5_geo_oracle.json) — the flow net, not the
+    exactly (results_r5_geo_oracle.json at cf6389d) — the flow net, not the
     geometry, is the generalization bottleneck. Charbonnier-EPE keeps
     gradients bounded near zero error.
     """

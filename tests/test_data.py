@@ -406,7 +406,7 @@ class TestWanderWorld:
     rotation across all three axes. The r3 "loop" worlds have a
     constant within-world yaw rate, so a net regressing the dataset's
     rotation prior is indistinguishable from one reading rotation from
-    the images (results_r3_quality3.json diag_rot_corr ~ 0 in every
+    the images (results_r3_quality3.json at cf6389d diag_rot_corr ~ 0 in every
     arm including supervised). On wander worlds pred-vs-GT per-frame
     rotation correlation is a falsifiable diagnostic
     (tools/dev/exp_rot_convention.py: supervised overfit reaches

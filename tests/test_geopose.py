@@ -62,7 +62,7 @@ class TestPoseFromFlow:
         ADVICE r4 #2. The pair set includes seed-99 indices 108-118
         and 186-192, which contain the pairs where the r4 config
         (iters=4, no step clip) DIVERGED to ~9 deg
-        (results_r5_geo_oracle.json drive_tiny_r4cfg)."""
+        (results_r5_geo_oracle.json at cf6389d drive_tiny_r4cfg)."""
         from davo_tpu.config import ModelConfig
         from davo_tpu.data.synthetic import DriveSequence
 

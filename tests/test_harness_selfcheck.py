@@ -1,25 +1,20 @@
 """Measurement-harness self-checks (r5, VERDICT r4 next-#7).
 
-Round 4 retracted two measurement results in one round: the r3
-train-step table (elided compute timed as 2.2 ms when the real step
-was 1,146 ms) and ladder4's scalar rot-corr column (np.trace over the
-BATCH axes of an (N, 3, 3) stack). This tier runs each diagnostic on
+Round 4 retracted two measurement results in one round: a train-step
+table that timed elided compute, and ladder4's scalar rot-corr column
+(np.trace over the BATCH axes of an (N, 3, 3) stack). This tier runs each diagnostic on
 synthetic streams with KNOWN answers so that elision/axis bugs fail
 loudly in CI instead of in a retraction.
 """
 
-import sys
 import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo/tools/dev")
-
-from exp_quality_ladder4 import mat_to_euler_np, rot_angle  # noqa: E402
-
 from davo_tpu.core import geometry as geo
+from davo_tpu.eval.metrics import mat_to_euler_np, rot_angle
 from davo_tpu.eval.runner import assemble_trajectory, evaluate_sequence
 from davo_tpu.utils.profiling import timed
 
@@ -92,8 +87,8 @@ class TestTimingHarness:
     def test_known_flops_not_elided(self):
         """A 2048^3 matmul is ~17.2 GFLOP; any wall time below 1 ms
         implies >17 PFLOPS — i.e. the compute was elided. This is the
-        CI analog of the r4 elision class (a '4096^3 matmul' that
-        timed at 0.013 ms on chip because nothing consumed it)."""
+        CI analog of the r4 elision class (a matmul whose result
+        nothing consumed)."""
         x = jnp.asarray(
             np.random.default_rng(0).normal(size=(2048, 2048)),
             jnp.float32,

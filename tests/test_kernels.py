@@ -1,30 +1,155 @@
-"""Pallas kernels vs their XLA references (interpret mode on CPU;
+"""Kernels vs their plain references (Pallas in interpret mode on CPU;
 SURVEY.md §4.1 'Pallas kernels vs jax.lax reference ops')."""
+
+import re
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from davo_tpu.kernels.conv_stack import (
-    fusable_prefix,
-    fused_conv_stack,
-    same_pads,
+from davo_tpu.core import warp
+from davo_tpu.kernels.costvol import (
+    batch_partitioned,
+    cost_volume,
+    cost_volume_pallas,
+    cost_volume_xla,
 )
-from davo_tpu.kernels.costvol import cost_volume_pallas, cost_volume_xla
 from davo_tpu.kernels.resize import resize_bilinear_aligned, upsample2x_bilinear
 from davo_tpu.kernels.sample import bilinear_sample_matmul
 from davo_tpu.core.warp import bilinear_sample
 
+# (search, channels, level width) of every refined flow level of the
+# 128x416 presets: davo (search 4; /4, /8, /16 levels with 32, 64, 96
+# channels) and davo-fast (search 3; 8-channel projection; /4, /8).
+PRESET_LEVELS = [(4, 32, 104), (4, 64, 52), (4, 96, 26), (3, 8, 104), (3, 8, 52)]
+
+
+def _features(rng, shape, dtype=jnp.float32):
+    return (
+        jnp.asarray(rng.normal(size=shape), dtype),
+        jnp.asarray(rng.normal(size=shape), dtype),
+    )
+
 
 class TestCostVolume:
-    def test_matches_xla(self, rng):
-        f1 = jnp.asarray(rng.normal(size=(2, 8, 12, 16)), jnp.float32)
-        f2 = jnp.asarray(rng.normal(size=(2, 8, 12, 16)), jnp.float32)
-        got = cost_volume_pallas(f1, f2, 2)
-        want = cost_volume_xla(f1, f2, 2)
-        assert got.shape == (2, 8, 12, 25)
+    @pytest.mark.parametrize("search,C,W", PRESET_LEVELS)
+    def test_matches_xla(self, rng, search, C, W):
+        """The Triton kernel, interpreted, at the presets' widths; f32
+        sums in another order than XLA's mean, hence the 1e-5."""
+        f1, f2 = _features(rng, (2, 3, W, C))
+        got = cost_volume_pallas(f1, f2, search, interpret=True)
+        want = cost_volume_xla(f1, f2, search)
+        assert got.shape == (2, 3, W, (2 * search + 1) ** 2)
+        assert got.dtype == jnp.float32
         np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-5)
+
+    def test_ragged_tiles_are_masked(self, rng):
+        """W and C far from powers of two: the masked tile edges must
+        read zeros, and the frame border must act as zero padding."""
+        f1, f2 = _features(rng, (1, 5, 13, 5))
+        got = cost_volume_pallas(f1, f2, 2, interpret=True)
+        np.testing.assert_allclose(
+            np.asarray(got), np.asarray(cost_volume_xla(f1, f2, 2)), atol=1e-5
+        )
+
+    def test_bf16_inputs_accumulate_in_f32(self, rng):
+        f1, f2 = _features(rng, (1, 3, 26, 32), jnp.bfloat16)
+        got = cost_volume_pallas(f1, f2, 2, interpret=True)
+        want = cost_volume_xla(f1.astype(jnp.float32), f2.astype(jnp.float32), 2)
+        assert got.dtype == jnp.float32
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-5)
+
+    def test_gradient_is_xla_vjp(self, rng):
+        f1, f2 = _features(rng, (2, 4, 10, 6))
+        w = jnp.asarray(rng.normal(size=(2, 4, 10, 25)), jnp.float32)
+
+        def loss(fn):
+            return lambda a, b: jnp.sum(fn(a, b, 2) * w)
+
+        got = jax.grad(loss(cost_volume), (0, 1))(f1, f2)
+        want = jax.grad(loss(cost_volume_xla), (0, 1))(f1, f2)
+        for g, r in zip(got, want):
+            np.testing.assert_allclose(np.asarray(g), np.asarray(r), atol=1e-6)
+
+    def test_cpu_lowering_takes_xla_branch(self, rng):
+        """platform_dependent resolves at lowering: on the CPU no
+        Triton call is emitted and the result is the XLA form's."""
+        f1, f2 = _features(rng, (1, 4, 9, 3))
+        fn = jax.jit(lambda a, b: cost_volume(a, b, 1))
+        text = fn.lower(f1, f2).as_text()
+        assert "triton" not in text.lower()
+        np.testing.assert_allclose(
+            np.asarray(fn(f1, f2)), np.asarray(cost_volume_xla(f1, f2, 1)),
+            atol=1e-6,
+        )
+
+
+def _interpreted(f1, f2, search):
+    return cost_volume_pallas(f1, f2, search, interpret=True)
+
+
+@pytest.fixture
+def mesh8():
+    return Mesh(np.asarray(jax.devices()[:8]).reshape(4, 2), ("data", "model"))
+
+
+class TestCostVolumeSharding:
+    """`batch_partitioned` under a sharded jit on the 8-device CPU mesh,
+    with the kernel interpreted: each device runs it on its own batch
+    shard."""
+
+    @pytest.mark.parametrize("spec", [P("data"), P(("data", "model"))])
+    def test_batch_shards_stay_local(self, rng, mesh8, spec):
+        f1, f2 = _features(rng, (8, 4, 10, 6))
+        sh = NamedSharding(mesh8, spec)
+        fn = jax.jit(
+            lambda a, b: batch_partitioned(_interpreted)(a, b, 2),
+            in_shardings=(sh, sh),
+        )
+        hlo = fn.lower(f1, f2).compile().as_text()
+        assert not re.search(r"all-gather|all-reduce|collective-permute|all-to-all", hlo)
+        out = fn(f1, f2)
+        assert out.sharding.spec == spec
+        np.testing.assert_allclose(
+            np.asarray(out), np.asarray(cost_volume_xla(f1, f2, 2)), atol=1e-5
+        )
+
+    def test_sharded_channels_are_gathered(self, rng, mesh8):
+        """Channels sharded over 'model' are gathered for the kernel;
+        the batch stays split over 'data'."""
+        f1, f2 = _features(rng, (8, 4, 10, 6))
+        sh = NamedSharding(mesh8, P("data", None, None, "model"))
+        fn = jax.jit(
+            lambda a, b: batch_partitioned(_interpreted)(a, b, 2),
+            in_shardings=(sh, sh),
+        )
+        out = fn(f1, f2)
+        assert out.sharding.spec == P("data")
+        np.testing.assert_allclose(
+            np.asarray(out), np.asarray(cost_volume_xla(f1, f2, 2)), atol=1e-5
+        )
+
+    def test_cuda_lowering_is_partitioned(self, mesh8):
+        """Lowered for CUDA, `cost_volume` is the partitioned kernel
+        under a multi-device sharding and the plain Triton call on one
+        device (no compile: the CPU cannot build CUDA code)."""
+        x = jax.ShapeDtypeStruct((8, 8, 24, 32), jnp.float32)
+        xs = jax.ShapeDtypeStruct(
+            x.shape, x.dtype, sharding=NamedSharding(mesh8, P("data"))
+        )
+
+        def cuda_text(arg):
+            return jax.jit(lambda a, b: cost_volume(a, b, 4)).trace(arg, arg).lower(
+                lowering_platforms=("cuda",)
+            ).as_text()
+
+        sharded, single = cuda_text(xs), cuda_text(x)
+        assert sharded.count("CustomSPMDPartitioning") == 1
+        assert "xla.gpu.triton" not in sharded  # lowered per shard at compile
+        assert single.count("xla.gpu.triton") == 1
+        assert "CustomSPMDPartitioning" not in single
 
 
 class TestResize:
@@ -43,12 +168,54 @@ class TestResize:
         assert out.shape == (1, 6, 6, 2)
 
 
-class TestBandedWarp:
-    def test_matches_gather_in_band(self, rng):
-        """Exact equality vs bilinear_sample wherever displacement
-        fits the (rh, rv) band (the kernel's contract)."""
-        from davo_tpu.kernels.bandwarp import banded_warp
+def _band_sample_np(img, coords, rv, rh, fill):
+    """NumPy reference: clamp each displacement into the band, then
+    into the frame, then sample bilinearly."""
+    img = np.asarray(img, np.float64)
+    B, H, W, C = img.shape
+    u, v = np.asarray(coords[..., 0]), np.asarray(coords[..., 1])
+    Ho, Wo = u.shape[1:]
+    x = np.arange(Wo)[None, None, :]
+    y = np.arange(Ho)[None, :, None]
+    valid = ((u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1))[..., None]
+    uc = np.clip(np.clip(u - x, -rh, rh) + x, 0, W - 1)
+    vc = np.clip(np.clip(v - y, -rv, rv) + y, 0, H - 1)
+    u0, v0 = np.floor(uc).astype(int), np.floor(vc).astype(int)
+    u1, v1 = np.minimum(u0 + 1, W - 1), np.minimum(v0 + 1, H - 1)
+    fu, fv = (uc - u0)[..., None], (vc - v0)[..., None]
+    b = np.arange(B)[:, None, None]
+    top = img[b, v0, u0] * (1 - fu) + img[b, v0, u1] * fu
+    bot = img[b, v1, u0] * (1 - fu) + img[b, v1, u1] * fu
+    out = top * (1 - fv) + bot * fv
+    return (out * valid if fill == "zeros" else out), valid
 
+
+@pytest.fixture
+def band(monkeypatch):
+    def set_band(rv, rh):
+        monkeypatch.setattr(warp, "_BAND", (rv, rh))
+
+    return set_band
+
+
+class TestBandedWarp:
+    @pytest.mark.parametrize("fill", ["border", "zeros"])
+    @pytest.mark.parametrize("rv,rh", [(1, 2), (2, 4), (4, 16)])
+    def test_band_clamp_matches_numpy(self, rng, band, rv, rh, fill):
+        band(rv, rh)
+        img = jnp.asarray(rng.uniform(size=(2, 12, 20, 3)), jnp.float32)
+        coords = jnp.asarray(
+            rng.uniform(-8, 28, size=(2, 12, 20, 2)), jnp.float32
+        )
+        got, gvalid = bilinear_sample(img, coords, fill=fill, method="banded")
+        want, wvalid = _band_sample_np(img, coords, rv, rh, fill)
+        np.testing.assert_allclose(np.asarray(got), want, atol=1e-5)
+        np.testing.assert_array_equal(np.asarray(gvalid), wvalid)
+
+    def test_matches_gather_in_band(self, rng, band):
+        """Exact equality vs the take4 gather wherever the
+        displacement fits the (rh, rv) band."""
+        band(2, 4)
         B, H, W, C = 2, 16, 24, 3
         img = jnp.asarray(rng.uniform(size=(B, H, W, C)), jnp.float32)
         gy, gx = np.meshgrid(
@@ -63,8 +230,8 @@ class TestBandedWarp:
             ),
             jnp.float32,
         )
-        want, wvalid = bilinear_sample(img, coords, fill="border")
-        got, gvalid = banded_warp(img, coords, rv=2, rh=4)
+        want, wvalid = bilinear_sample(img, coords, fill="border", method="take4")
+        got, gvalid = bilinear_sample(img, coords, fill="border", method="banded")
         np.testing.assert_allclose(
             np.asarray(got), np.asarray(want), atol=1e-5
         )
@@ -72,13 +239,12 @@ class TestBandedWarp:
             np.asarray(gvalid), np.asarray(wvalid)
         )
 
-    def test_grads_match_gather_in_band(self, rng):
-        """Hand-written banded VJP == take4 autodiff for BOTH img and
-        coords cotangents on in-band fields (incl. exactly-integer
-        coords and frame edges — the floor-cell subgradient and the
-        asymmetric edge masks are pinned by the u=0 / u=W-1 rows)."""
-        from davo_tpu.kernels.bandwarp import banded_warp
-
+    def test_grads_match_gather_in_band(self, rng, band):
+        """d/d(img) and d/d(coords) equal take4's inside the band,
+        including exactly-integer coords and the frame edges: the
+        floor-cell subgradient and the edge clamp are pinned by the
+        u=0 / u=W-1 samples of the du=0 row."""
+        band(2, 4)
         B, H, W, C = 2, 12, 16, 3
         img = jnp.asarray(rng.uniform(size=(B, H, W, C)), jnp.float32)
         gy, gx = np.meshgrid(
@@ -92,17 +258,13 @@ class TestBandedWarp:
         )
         wgt = jnp.asarray(rng.normal(size=(B, H, W, C)), jnp.float32)
 
-        def loss_ref(img, c):
-            return (
-                bilinear_sample(img, c, fill="border", method="take4")[0]
-                * wgt
+        def loss(method):
+            return lambda im, c: (
+                bilinear_sample(im, c, fill="border", method=method)[0] * wgt
             ).sum()
 
-        def loss_band(img, c):
-            return (banded_warp(img, c, rv=2, rh=4)[0] * wgt).sum()
-
-        gr = jax.grad(loss_ref, (0, 1))(img, coords)
-        gb = jax.grad(loss_band, (0, 1))(img, coords)
+        gr = jax.grad(loss("take4"), (0, 1))(img, coords)
+        gb = jax.grad(loss("banded"), (0, 1))(img, coords)
         np.testing.assert_allclose(
             np.asarray(gr[0]), np.asarray(gb[0]), atol=1e-5
         )
@@ -110,17 +272,20 @@ class TestBandedWarp:
             np.asarray(gr[1]), np.asarray(gb[1]), atol=1e-5
         )
 
-    def test_out_of_band_clamps_and_stays_finite(self, rng):
-        from davo_tpu.kernels.bandwarp import banded_warp
-
+    def test_out_of_band_clamps_and_stays_finite(self, rng, band):
+        band(2, 4)
         img = jnp.asarray(rng.uniform(size=(1, 8, 16, 2)), jnp.float32)
         coords = jnp.asarray(
             rng.uniform(-30, 60, size=(1, 8, 16, 2)), jnp.float32
         )
-        out, valid = banded_warp(img, coords, rv=2, rh=4, fill="zeros")
+        out, valid = bilinear_sample(img, coords, fill="zeros", method="banded")
         assert bool(jnp.isfinite(out).all())
         # zeros fill: invalid (out-of-frame) samples are zeroed
         assert float(jnp.abs(out * (1 - valid)).max()) == 0.0
+        g = jax.grad(
+            lambda c: bilinear_sample(img, c, fill="border", method="banded")[0].sum()
+        )(coords)
+        assert bool(jnp.isfinite(g).all())
 
 
 class TestMatmulSampler:
@@ -135,652 +300,3 @@ class TestMatmulSampler:
             np.asarray(got), np.asarray(want), atol=1e-5
         )
         np.testing.assert_array_equal(np.asarray(gvalid), np.asarray(wvalid))
-
-
-class TestFusedConvStack:
-    def _xla_stack(self, x, weights, biases, strides):
-        y = x
-        for w, b, s in zip(weights, biases, strides):
-            y = jax.lax.conv_general_dilated(
-                y, w, (s, s), "SAME",
-                dimension_numbers=("NHWC", "HWIO", "NHWC"),
-                preferred_element_type=jnp.float32,
-            )
-            y = jax.nn.relu(y + b)
-        return y
-
-    def _make(self, rng, ks, chans, cin):
-        ws, bs = [], []
-        for k, c in zip(ks, chans):
-            ws.append(
-                jnp.asarray(
-                    rng.normal(size=(k, k, cin, c)) / np.sqrt(k * k * cin),
-                    jnp.float32,
-                )
-            )
-            bs.append(jnp.asarray(rng.normal(size=(c,)) * 0.01, jnp.float32))
-            cin = c
-        return tuple(ws), tuple(bs)
-
-    def test_stride1_matches_xla(self, rng):
-        x = jnp.asarray(rng.uniform(size=(4, 8, 12, 8)), jnp.float32)
-        ws, bs = self._make(rng, (3, 3), (16, 8), 8)
-        want = self._xla_stack(x, ws, bs, (1, 1))
-        got = fused_conv_stack(
-            x, ws, bs, (1, 1), (True, True),
-            batch_tile=2, compute_dtype_name="float32",
-        )
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4
-        )
-
-    def test_stride2_matches_xla(self, rng):
-        """Parity-plane stride-2 path incl. k=5/k=7 asymmetric pads."""
-        x = jnp.asarray(rng.uniform(size=(2, 16, 24, 4)), jnp.float32)
-        ws, bs = self._make(rng, (5, 3), (8, 16), 4)
-        want = self._xla_stack(x, ws, bs, (2, 2))
-        got = fused_conv_stack(
-            x, ws, bs, (2, 2), (True, True),
-            batch_tile=1, compute_dtype_name="float32",
-        )
-        assert got.shape == want.shape == (2, 4, 6, 16)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4
-        )
-
-    def test_mixed_strides(self, rng):
-        x = jnp.asarray(rng.uniform(size=(2, 8, 8, 4)), jnp.float32)
-        ws, bs = self._make(rng, (3, 3, 3), (8, 8, 8), 4)
-        want = self._xla_stack(x, ws, bs, (2, 1, 2))
-        got = fused_conv_stack(
-            x, ws, bs, (2, 1, 2), (True, True, True),
-            batch_tile=2, compute_dtype_name="float32",
-        )
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4
-        )
-
-    def test_fusable_prefix(self):
-        # 416-wide: stride-2 chain hits odd width (13) at layer 6.
-        assert fusable_prefix(128, 416, (7, 5, 3, 3, 3, 3, 3), (2,) * 7) == 5
-        assert fusable_prefix(64, 64, (3, 3), (2, 2)) == 2
-
-    def test_same_pads(self):
-        assert same_pads(128, 3, 2) == (64, 0, 1)
-        assert same_pads(13, 3, 2) == (7, 1, 1)
-        assert same_pads(416, 7, 2) == (208, 2, 3)
-
-
-class TestChainVJP:
-    """conv_chain_nhwc_ad: hand-written Pallas VJP vs jax.grad of the
-    XLA chain (forward + dx + dW + db)."""
-
-    def _xla_chain(self, x, weights, biases, relus):
-        y = x.astype(jnp.float32)
-        for w, b, r in zip(weights, biases, relus):
-            y = jax.lax.conv_general_dilated(
-                y, w, (1, 1), "SAME",
-                dimension_numbers=("NHWC", "HWIO", "NHWC"),
-                preferred_element_type=jnp.float32,
-            )
-            y = y + b
-            if r:
-                y = jax.nn.relu(y)
-        return y
-
-    def _setup(self, rng, chans, cin, B=2, H=8, W=12):
-        x = jnp.asarray(rng.normal(size=(B, H, W, cin)), jnp.float32)
-        ws, bs = [], []
-        c = cin
-        for co in chans:
-            ws.append(jnp.asarray(
-                rng.normal(size=(3, 3, c, co)) / np.sqrt(9 * c),
-                jnp.float32,
-            ))
-            bs.append(jnp.asarray(rng.normal(size=(co,)) * 0.01, jnp.float32))
-            c = co
-        # fixed cotangent so d/dargs of <out, cot> is a full VJP probe
-        return x, tuple(ws), tuple(bs)
-
-    @pytest.mark.parametrize("relus", [(True, True), (True, False)])
-    def test_grads_match_xla(self, rng, relus):
-        from davo_tpu.kernels.rowconv import conv_chain_nhwc_ad
-
-        x, ws, bs = self._setup(rng, (8, 16), 6)
-        cot = jnp.asarray(
-            rng.normal(size=(2, 8, 12, 16)), jnp.float32
-        )
-
-        def loss_fused(x, ws, bs):
-            out = conv_chain_nhwc_ad(x, ws, bs, relus, "float32")
-            return jnp.sum(out * cot)
-
-        def loss_xla(x, ws, bs):
-            return jnp.sum(self._xla_chain(x, ws, bs, relus) * cot)
-
-        out_f = conv_chain_nhwc_ad(x, ws, bs, relus, "float32")
-        out_x = self._xla_chain(x, ws, bs, relus)
-        np.testing.assert_allclose(
-            np.asarray(out_f), np.asarray(out_x), rtol=1e-4, atol=1e-5
-        )
-        g_f = jax.grad(loss_fused, argnums=(0, 1, 2))(x, ws, bs)
-        g_x = jax.grad(loss_xla, argnums=(0, 1, 2))(x, ws, bs)
-        for a, b in zip(jax.tree_util.tree_leaves(g_f),
-                        jax.tree_util.tree_leaves(g_x)):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=1e-3, atol=1e-4
-            )
-
-    def test_estimator_shape_grads(self, rng):
-        """The production estimator chain shape (115->96/64/32/2)
-        at a reduced resolution, 4 layers, no final relu."""
-        from davo_tpu.kernels.rowconv import conv_chain_nhwc_ad
-
-        relus = (True, True, True, False)
-        x, ws, bs = self._setup(rng, (24, 16, 8, 2), 29, B=2, H=8, W=13)
-
-        def loss_fused(x, ws, bs):
-            return jnp.sum(
-                conv_chain_nhwc_ad(x, ws, bs, relus, "float32") ** 2
-            )
-
-        def loss_xla(x, ws, bs):
-            return jnp.sum(self._xla_chain(x, ws, bs, relus) ** 2)
-
-        g_f = jax.grad(loss_fused, argnums=(0, 1, 2))(x, ws, bs)
-        g_x = jax.grad(loss_xla, argnums=(0, 1, 2))(x, ws, bs)
-        for a, b in zip(jax.tree_util.tree_leaves(g_f),
-                        jax.tree_util.tree_leaves(g_x)):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=1e-3, atol=1e-4
-            )
-
-    def test_remat_compatible(self, rng):
-        """jax.checkpoint over the custom-VJP chain (train.remat wraps
-        the whole loss; the fused estimator must survive it)."""
-        from davo_tpu.kernels.rowconv import conv_chain_nhwc_ad
-
-        relus = (True, True)
-        x, ws, bs = self._setup(rng, (8, 8), 4, B=2, H=6, W=10)
-
-        @jax.checkpoint
-        def f(x, ws, bs):
-            return jnp.sum(conv_chain_nhwc_ad(x, ws, bs, relus, "float32"))
-
-        g_f = jax.grad(f, argnums=(0, 1, 2))(x, ws, bs)
-        g_x = jax.grad(
-            lambda x, ws, bs: jnp.sum(self._xla_chain(x, ws, bs, relus)),
-            argnums=(0, 1, 2),
-        )(x, ws, bs)
-        for a, b in zip(jax.tree_util.tree_leaves(g_f),
-                        jax.tree_util.tree_leaves(g_x)):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=1e-3, atol=1e-4
-            )
-
-    def test_jit_and_batch_accumulation(self, rng):
-        """dW/db accumulate across the batch grid (not per-item
-        partials); B>1 grads under jit match XLA."""
-        from davo_tpu.kernels.rowconv import conv_chain_nhwc_ad
-
-        relus = (True, True)
-        x, ws, bs = self._setup(rng, (8, 8), 4, B=5, H=6, W=10)
-
-        @jax.jit
-        def g_fused(x, ws, bs):
-            return jax.grad(
-                lambda *a: jnp.sum(
-                    conv_chain_nhwc_ad(*a, relus, "float32")
-                ),
-                argnums=(1, 2),
-            )(x, ws, bs)
-
-        g_f = g_fused(x, ws, bs)
-        g_x = jax.grad(
-            lambda x, ws, bs: jnp.sum(self._xla_chain(x, ws, bs, relus)),
-            argnums=(1, 2),
-        )(x, ws, bs)
-        for a, b in zip(jax.tree_util.tree_leaves(g_f),
-                        jax.tree_util.tree_leaves(g_x)):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=1e-3, atol=1e-4
-            )
-
-
-class TestFlowLevelVJP:
-    """flow_level_fused_ad: hand-written VJP for the whole flow level
-    (cost volume + concat + chain) vs jax.grad of the XLA composite."""
-
-    SEARCH = 2
-
-    def _xla_level(self, f1, f2, feat, flow_up, ws, bs, relus):
-        from davo_tpu.models.flownet import cost_volume
-
-        cv = jax.nn.relu(cost_volume(f1, f2, self.SEARCH))
-        x = jnp.concatenate([cv, feat, flow_up], axis=-1)
-        for w, b, r in zip(ws, bs, relus):
-            x = jax.lax.conv_general_dilated(
-                x, w, (1, 1), "SAME",
-                dimension_numbers=("NHWC", "HWIO", "NHWC"),
-                preferred_element_type=jnp.float32,
-            )
-            x = x + b
-            if r:
-                x = jax.nn.relu(x)
-        return x
-
-    def _setup(self, rng, B=2, H=6, W=10, C=5, Cf=7):
-        D = (2 * self.SEARCH + 1) ** 2
-        f1 = jnp.asarray(rng.normal(size=(B, H, W, C)), jnp.float32)
-        f2 = jnp.asarray(rng.normal(size=(B, H, W, C)), jnp.float32)
-        feat = jnp.asarray(rng.normal(size=(B, H, W, Cf)), jnp.float32)
-        flow_up = jnp.asarray(
-            rng.normal(size=(B, H, W, 2)), jnp.float32
-        )
-        chans = (8, 8, 2)
-        ws, bs = [], []
-        c = D + Cf + 2
-        for co in chans:
-            ws.append(jnp.asarray(
-                rng.normal(size=(3, 3, c, co)) / np.sqrt(9 * c),
-                jnp.float32,
-            ))
-            bs.append(jnp.asarray(rng.normal(size=(co,)) * 0.01, jnp.float32))
-            c = co
-        return f1, f2, feat, flow_up, tuple(ws), tuple(bs)
-
-    def test_forward_matches_xla(self, rng):
-        from davo_tpu.kernels.rowconv import flow_level_fused_ad
-
-        f1, f2, feat, flow_up, ws, bs = self._setup(rng)
-        relus = (True, True, False)
-        got = flow_level_fused_ad(
-            f1, f2, feat, flow_up, ws, bs, self.SEARCH, relus, "float32"
-        )
-        want = self._xla_level(f1, f2, feat, flow_up, ws, bs, relus)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-5
-        )
-
-    def test_serving_bf16_dot_mode(self, rng):
-        """flow_level_fused (serving) under bf16_dot stays within
-        bf16-class error of the f32 XLA composite."""
-        from davo_tpu.kernels.rowconv import flow_level_fused
-
-        f1, f2, feat, flow_up, ws, bs = self._setup(rng)
-        relus = (True, True, False)
-        got = flow_level_fused(
-            f1, f2, feat, flow_up, ws, bs, self.SEARCH, relus,
-            compute_dtype_name="bf16_dot",
-        )
-        want = self._xla_level(f1, f2, feat, flow_up, ws, bs, relus)
-        ref = np.asarray(want)
-        err = np.abs(np.asarray(got) - ref).max()
-        assert err / (np.abs(ref).max() + 1e-6) < 2e-2, err
-
-    def test_grads_match_xla(self, rng):
-        from davo_tpu.kernels.rowconv import flow_level_fused_ad
-
-        f1, f2, feat, flow_up, ws, bs = self._setup(rng)
-        relus = (True, True, False)
-        cot = jnp.asarray(rng.normal(size=(2, 6, 10, 2)), jnp.float32)
-
-        def loss_fused(f1, f2, feat, flow_up, ws, bs):
-            out = flow_level_fused_ad(
-                f1, f2, feat, flow_up, ws, bs, self.SEARCH, relus,
-                "float32",
-            )
-            return jnp.sum(out * cot)
-
-        def loss_xla(f1, f2, feat, flow_up, ws, bs):
-            return jnp.sum(
-                self._xla_level(f1, f2, feat, flow_up, ws, bs, relus)
-                * cot
-            )
-
-        args = (f1, f2, feat, flow_up, ws, bs)
-        g_f = jax.grad(loss_fused, argnums=tuple(range(6)))(*args)
-        g_x = jax.grad(loss_xla, argnums=tuple(range(6)))(*args)
-        for a, b in zip(jax.tree_util.tree_leaves(g_f),
-                        jax.tree_util.tree_leaves(g_x)):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=1e-3, atol=1e-4
-            )
-
-    def test_grads_under_jit_batched(self, rng):
-        """B>2 under jit: dW/db grid accumulation + all six grads."""
-        from davo_tpu.kernels.rowconv import flow_level_fused_ad
-
-        f1, f2, feat, flow_up, ws, bs = self._setup(rng, B=4)
-        relus = (True, True, False)
-
-        @jax.jit
-        def g_fused(f1, f2, feat, flow_up, ws, bs):
-            return jax.grad(
-                lambda *a: jnp.sum(
-                    flow_level_fused_ad(
-                        *a, self.SEARCH, relus, "float32"
-                    )
-                    ** 2
-                ),
-                argnums=tuple(range(6)),
-            )(f1, f2, feat, flow_up, ws, bs)
-
-        g_f = g_fused(f1, f2, feat, flow_up, ws, bs)
-        g_x = jax.grad(
-            lambda *a: jnp.sum(self._xla_level(*a, relus) ** 2),
-            argnums=tuple(range(6)),
-        )(f1, f2, feat, flow_up, ws, bs)
-        for a, b in zip(jax.tree_util.tree_leaves(g_f),
-                        jax.tree_util.tree_leaves(g_x)):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=1e-3, atol=1e-4
-            )
-
-
-class TestStridedVJP:
-    """conv_chain_strided_ad: hand-written VJP for mixed-stride chains
-    (s2d boundaries, window taps, multi-output taps) vs jax.grad of
-    the XLA chain."""
-
-    def _xla_chain(self, x, weights, biases, strides, relus, upto=None):
-        y = x.astype(jnp.float32)
-        outs = []
-        for w, b, s, r in zip(weights, biases, strides, relus):
-            y = jax.lax.conv_general_dilated(
-                y, w, (s, s), "SAME",
-                dimension_numbers=("NHWC", "HWIO", "NHWC"),
-                preferred_element_type=jnp.float32,
-            )
-            y = y + b
-            if r:
-                y = jax.nn.relu(y)
-            outs.append(y)
-        return outs
-
-    def _setup(self, rng, ks, chans, cin, B=2, H=8, W=12):
-        x = jnp.asarray(rng.normal(size=(B, H, W, cin)), jnp.float32)
-        ws, bs = [], []
-        c = cin
-        for k, co in zip(ks, chans):
-            ws.append(jnp.asarray(
-                rng.normal(size=(k, k, c, co)) / np.sqrt(k * k * c),
-                jnp.float32,
-            ))
-            bs.append(jnp.asarray(rng.normal(size=(co,)) * 0.01, jnp.float32))
-            c = co
-        return x, tuple(ws), tuple(bs)
-
-    @pytest.mark.parametrize(
-        "ks,strides",
-        [((3, 3), (2, 1)), ((7, 3), (2, 2)), ((5, 3, 3), (2, 1, 2))],
-    )
-    def test_grads_match_xla(self, rng, ks, strides):
-        from davo_tpu.kernels.rowconv import conv_chain_strided_ad
-
-        relus = (True,) * (len(ks) - 1) + (False,)
-        x, ws, bs = self._setup(rng, ks, (8,) * len(ks), 6, H=16, W=24)
-
-        def loss_fused(x, ws, bs):
-            out = conv_chain_strided_ad(
-                x, ws, bs, strides, relus,
-                compute_dtype_name="float32",
-            )
-            return jnp.sum(out**2)
-
-        def loss_xla(x, ws, bs):
-            return jnp.sum(
-                self._xla_chain(x, ws, bs, strides, relus)[-1] ** 2
-            )
-
-        out_f = conv_chain_strided_ad(
-            x, ws, bs, strides, relus, compute_dtype_name="float32"
-        )
-        out_x = self._xla_chain(x, ws, bs, strides, relus)[-1]
-        np.testing.assert_allclose(
-            np.asarray(out_f), np.asarray(out_x), rtol=1e-4, atol=1e-5
-        )
-        g_f = jax.grad(loss_fused, argnums=(0, 1, 2))(x, ws, bs)
-        g_x = jax.grad(loss_xla, argnums=(0, 1, 2))(x, ws, bs)
-        for a, b in zip(jax.tree_util.tree_leaves(g_f),
-                        jax.tree_util.tree_leaves(g_x)):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=1e-3, atol=1e-4
-            )
-
-    def test_taps_multi_output_grads(self, rng):
-        """Pyramid shape: taps at every (s2, s1) pair boundary; each
-        output receives its own cotangent and all grads match XLA."""
-        from davo_tpu.kernels.rowconv import conv_chain_strided_ad
-
-        strides = (2, 1, 2, 1)
-        relus = (True,) * 4
-        taps = (1, 3)
-        x, ws, bs = self._setup(
-            rng, (3, 3, 3, 3), (8, 8, 12, 12), 6, H=16, W=24
-        )
-
-        def loss_fused(x, ws, bs):
-            outs = conv_chain_strided_ad(
-                x, ws, bs, strides, relus, taps,
-                compute_dtype_name="float32",
-            )
-            return sum(jnp.sum(o**2) * w for o, w in zip(outs, (1.0, 3.0)))
-
-        def loss_xla(x, ws, bs):
-            outs = self._xla_chain(x, ws, bs, strides, relus)
-            return (
-                jnp.sum(outs[1] ** 2) * 1.0 + jnp.sum(outs[3] ** 2) * 3.0
-            )
-
-        g_f = jax.jit(jax.grad(loss_fused, argnums=(0, 1, 2)))(x, ws, bs)
-        g_x = jax.grad(loss_xla, argnums=(0, 1, 2))(x, ws, bs)
-        for a, b in zip(jax.tree_util.tree_leaves(g_f),
-                        jax.tree_util.tree_leaves(g_x)):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=1e-3, atol=1e-4
-            )
-
-    def test_bf16_grads_run(self, rng):
-        """Production dtype: differentiates without dtype errors."""
-        from davo_tpu.kernels.rowconv import conv_chain_strided_ad
-
-        strides, relus = (2, 1), (True, True)
-        x, ws, bs = self._setup(rng, (3, 3), (8, 8), 4, H=8, W=12)
-        x = x.astype(jnp.bfloat16)
-        g = jax.grad(
-            lambda x, ws, bs: jnp.sum(
-                conv_chain_strided_ad(
-                    x, ws, bs, strides, relus,
-                    compute_dtype_name="bfloat16",
-                ).astype(jnp.float32)
-                ** 2
-            ),
-            argnums=(0, 1, 2),
-        )(x, ws, bs)
-        for leaf in jax.tree_util.tree_leaves(g):
-            assert np.all(np.isfinite(np.asarray(leaf, np.float32)))
-        assert g[0].dtype == jnp.bfloat16
-
-
-class TestStridedRowChain:
-    """conv_chain_strided (rows-layout s2d formulation) vs XLA."""
-
-    def _xla_stack(self, x, weights, biases, strides, relus=None):
-        if relus is None:
-            relus = (True,) * len(weights)
-        y = x.astype(jnp.float32)
-        for w, b, s, r in zip(weights, biases, strides, relus):
-            y = jax.lax.conv_general_dilated(
-                y, w, (s, s), "SAME",
-                dimension_numbers=("NHWC", "HWIO", "NHWC"),
-                preferred_element_type=jnp.float32,
-            )
-            y = y + b
-            if r:
-                y = jax.nn.relu(y)
-        return y
-
-    def _make(self, rng, ks, chans, cin):
-        ws, bs = [], []
-        for k, c in zip(ks, chans):
-            ws.append(
-                jnp.asarray(
-                    rng.normal(size=(k, k, cin, c)) / np.sqrt(k * k * cin),
-                    jnp.float32,
-                )
-            )
-            bs.append(jnp.asarray(rng.normal(size=(c,)) * 0.01, jnp.float32))
-            cin = c
-        return tuple(ws), tuple(bs)
-
-    def test_single_stride2_k3(self, rng):
-        from davo_tpu.kernels.rowconv import conv_chain_strided
-
-        x = jnp.asarray(rng.uniform(size=(2, 8, 12, 4)), jnp.float32)
-        ws, bs = self._make(rng, (3,), (8,), 4)
-        want = self._xla_stack(x, ws, bs, (2,))
-        got = conv_chain_strided(
-            x, ws, bs, (2,), (True,), compute_dtype_name="float32"
-        )
-        assert got.shape == want.shape == (2, 4, 6, 8)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-5
-        )
-
-    def test_single_stride2_k7(self, rng):
-        """7x7 stride-2 (PoseEncoder stem): 4x4 s2d window, asymmetric."""
-        from davo_tpu.kernels.rowconv import conv_chain_strided
-
-        x = jnp.asarray(rng.uniform(size=(2, 16, 24, 6)), jnp.float32)
-        ws, bs = self._make(rng, (7,), (8,), 6)
-        want = self._xla_stack(x, ws, bs, (2,))
-        got = conv_chain_strided(
-            x, ws, bs, (2,), (True,), compute_dtype_name="float32"
-        )
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-5
-        )
-
-    def test_mixed_stride_chain(self, rng):
-        from davo_tpu.kernels.rowconv import conv_chain_strided
-
-        x = jnp.asarray(rng.uniform(size=(2, 16, 16, 4)), jnp.float32)
-        ws, bs = self._make(rng, (3, 3, 3), (8, 8, 12), 4)
-        want = self._xla_stack(x, ws, bs, (2, 1, 2))
-        got = conv_chain_strided(
-            x, ws, bs, (2, 1, 2), (True, True, True),
-            compute_dtype_name="float32",
-        )
-        assert got.shape == want.shape == (2, 4, 4, 12)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-5
-        )
-
-    def test_pose_encoder_prefix_shapes(self, rng):
-        """The 5-layer fusable PoseEncoder prefix (7/5/3/3/3, all s2)
-        at a reduced resolution with the production channel ladder."""
-        from davo_tpu.kernels.rowconv import conv_chain_strided
-
-        x = jnp.asarray(rng.uniform(size=(1, 32, 64, 8)), jnp.float32)
-        ws, bs = self._make(rng, (7, 5, 3, 3, 3), (16, 32, 64, 128, 256), 8)
-        want = self._xla_stack(x, ws, bs, (2,) * 5)
-        got = conv_chain_strided(
-            x, ws, bs, (2,) * 5, (True,) * 5, compute_dtype_name="float32"
-        )
-        assert got.shape == want.shape == (1, 1, 2, 256)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-5
-        )
-
-    def test_attention_stack(self, rng):
-        """RegionAttention's 3x stride-2 conv stack, no-relu tail."""
-        from davo_tpu.kernels.rowconv import conv_chain_strided
-
-        x = jnp.asarray(rng.uniform(size=(2, 16, 24, 4)), jnp.float32)
-        ws, bs = self._make(rng, (3, 3, 3), (16, 32, 64), 4)
-        want = self._xla_stack(x, ws, bs, (2, 2, 2), (True, True, False))
-        got = conv_chain_strided(
-            x, ws, bs, (2, 2, 2), (True, True, False),
-            compute_dtype_name="float32",
-        )
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-5
-        )
-
-    def test_odd_dim_rejected(self, rng):
-        from davo_tpu.kernels.rowconv import conv_chain_strided
-
-        x = jnp.asarray(rng.uniform(size=(1, 8, 13, 4)), jnp.float32)
-        ws, bs = self._make(rng, (3,), (8,), 4)
-        with pytest.raises(ValueError, match="even dims"):
-            conv_chain_strided(
-                x, ws, bs, (2,), (True,), compute_dtype_name="float32"
-            )
-
-    def test_bf16_compute_dtype_tolerance(self, rng):
-        """The production compute dtype (bf16 operands, f32 accum)
-        stays within bf16-class error of the f32 XLA reference."""
-        from davo_tpu.kernels.rowconv import conv_chain_strided
-
-        x = jnp.asarray(rng.uniform(size=(2, 16, 24, 6)), jnp.float32)
-        ws, bs = self._make(rng, (7, 3, 3), (8, 16, 16), 6)
-        want = self._xla_stack(x, ws, bs, (2, 1, 2))
-        got = conv_chain_strided(
-            x, ws, bs, (2, 1, 2), (True,) * 3,
-            compute_dtype_name="bfloat16",
-        )
-        ref = np.asarray(want)
-        err = np.abs(np.asarray(got) - ref).max()
-        assert err / (np.abs(ref).max() + 1e-6) < 2e-2, err
-
-    def test_bf16_dot_mode_tolerance(self, rng):
-        """bf16_dot (f32 scratch, operands cast to bf16 only at the
-        MXU dot — the "Bad lhs type" rewrite candidate) matches the
-        f32 reference within bf16-class error, on both the strided
-        and the stride-1 chains."""
-        from davo_tpu.kernels.rowconv import (
-            conv_chain_nhwc,
-            conv_chain_strided,
-        )
-
-        x = jnp.asarray(rng.uniform(size=(2, 16, 24, 6)), jnp.float32)
-        ws, bs = self._make(rng, (7, 3, 3), (8, 16, 16), 6)
-        want = self._xla_stack(x, ws, bs, (2, 1, 2))
-        got = conv_chain_strided(
-            x, ws, bs, (2, 1, 2), (True,) * 3,
-            compute_dtype_name="bf16_dot",
-        )
-        ref = np.asarray(want)
-        err = np.abs(np.asarray(got) - ref).max()
-        assert err / (np.abs(ref).max() + 1e-6) < 2e-2, err
-
-        ws1, bs1 = self._make(rng, (3, 3), (8, 8), 6)
-        want1 = self._xla_stack(x, ws1, bs1, (1, 1))
-        got1 = conv_chain_nhwc(
-            x, ws1, bs1, (True, True), compute_dtype_name="bf16_dot"
-        )
-        ref1 = np.asarray(want1)
-        err1 = np.abs(np.asarray(got1) - ref1).max()
-        assert err1 / (np.abs(ref1).max() + 1e-6) < 2e-2, err1
-
-    def test_taps_emit_pyramid_levels(self, rng):
-        """taps: each tapped layer's output matches the XLA prefix."""
-        from davo_tpu.kernels.rowconv import conv_chain_strided
-
-        x = jnp.asarray(rng.uniform(size=(2, 16, 24, 6)), jnp.float32)
-        ws, bs = self._make(rng, (3, 3, 3, 3), (8, 8, 16, 16), 6)
-        strides = (2, 1, 2, 1)
-        outs = conv_chain_strided(
-            x, ws, bs, strides, (True,) * 4, taps=(1, 3),
-            compute_dtype_name="float32",
-        )
-        assert len(outs) == 2
-        for t, got in zip((2, 4), outs):
-            want = self._xla_stack(
-                x, ws[:t], bs[:t], strides[:t]
-            )
-            assert got.shape == want.shape
-            np.testing.assert_allclose(
-                np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-5
-            )

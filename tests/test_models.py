@@ -58,81 +58,6 @@ class TestPoseNet:
         assert all(np.all(np.isfinite(np.asarray(l))) for l in leaves)
         assert any(float(jnp.abs(l).max()) > 0 for l in leaves)
 
-    def test_fuse_pose_encoder_matches_xla_path(self, batch):
-        """fuse_pose_encoder=True (stride-2 stack as one s2d Pallas
-        kernel) == the XLA conv path on the SAME params."""
-        import dataclasses
-
-        net = PoseNet(CFG)
-        params = net.init(
-            jax.random.key(0), batch["target"], batch["sources"][:, 0]
-        )
-        ref = net.apply(params, batch["target"], batch["sources"][:, 0])
-        fused = PoseNet(dataclasses.replace(CFG, fuse_pose_encoder=True))
-        got = fused.apply(params, batch["target"], batch["sources"][:, 0])
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(ref), atol=5e-5
-        )
-
-    def test_fuse_pose_encoder_train_grads_match_xla(self, batch):
-        """fuse_pose_encoder_train (strided VJP): pose AND parameter
-        grads match the XLA path, at the production bfloat16 dtype the
-        structure must also survive (smoke)."""
-        import dataclasses
-
-        net = PoseNet(CFG)
-        params = net.init(
-            jax.random.key(0), batch["target"], batch["sources"][:, 0]
-        )
-        fused = PoseNet(
-            dataclasses.replace(CFG, fuse_pose_encoder_train=True)
-        )
-
-        def loss(m):
-            return lambda p: jnp.sum(
-                m.apply(p, batch["target"], batch["sources"][:, 0]) ** 2
-            )
-
-        got = fused.apply(params, batch["target"], batch["sources"][:, 0])
-        ref = net.apply(params, batch["target"], batch["sources"][:, 0])
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(ref), atol=5e-5
-        )
-        g_ref = jax.tree_util.tree_leaves_with_path(
-            jax.grad(loss(net))(params)
-        )
-        g_got = jax.tree_util.tree_leaves(jax.grad(loss(fused))(params))
-        for (path, a), b in zip(g_ref, g_got):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=2e-3, atol=1e-5,
-                err_msg=str(path),
-            )
-        # bf16 smoke
-        bf = dataclasses.replace(
-            CFG, compute_dtype="bfloat16", fuse_pose_encoder_train=True
-        )
-        g = jax.grad(loss(PoseNet(bf)))(params)
-        assert all(
-            np.all(np.isfinite(np.asarray(leaf, np.float32)))
-            for leaf in jax.tree_util.tree_leaves(g)
-        )
-
-    def test_fuse_pose_encoder_odd_dims_falls_back(self, batch):
-        """Odd input dims -> zero fusable prefix -> pure XLA path."""
-        import dataclasses
-
-        cfg = dataclasses.replace(CFG, img_height=63, img_width=95)
-        t = batch["target"][:, :63, :95]
-        s = batch["sources"][:, 0, :63, :95]
-        net = PoseNet(cfg)
-        params = net.init(jax.random.key(0), t, s)
-        ref = net.apply(params, t, s)
-        got = PoseNet(
-            dataclasses.replace(cfg, fuse_pose_encoder=True)
-        ).apply(params, t, s)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref))
-
-
 class TestDispNet:
     def test_multiscale_shapes(self, batch):
         net = DispNet(CFG)
@@ -156,46 +81,6 @@ class TestDispNet:
         params = net.init(jax.random.key(0), x)
         disps = net.apply(params, x)
         assert disps[0].shape == (1, 128, 416, 1)
-
-    def test_fuse_disp_encoder_matches_xla(self, batch):
-        """fuse_disp_encoder (serving) and fuse_disp_encoder_train
-        (strided VJP) == the XLA path on the same params: disparities
-        equal, and the _train variant's parameter grads match —
-        including the encoder convs, whose cotangents arrive through
-        BOTH the decoder skips and the chain (per-tap injection)."""
-        import dataclasses
-
-        net = DispNet(CFG)
-        params = net.init(jax.random.key(0), batch["target"])
-        ref = net.apply(params, batch["target"])
-        for flag in ("fuse_disp_encoder", "fuse_disp_encoder_train"):
-            fused = DispNet(dataclasses.replace(CFG, **{flag: True}))
-            got = fused.apply(params, batch["target"])
-            for a, b in zip(ref, got):
-                np.testing.assert_allclose(
-                    np.asarray(a), np.asarray(b), atol=5e-5,
-                    err_msg=flag,
-                )
-
-        fused = DispNet(
-            dataclasses.replace(CFG, fuse_disp_encoder_train=True)
-        )
-
-        def loss(m):
-            return lambda p: sum(
-                jnp.sum(d**2) for d in m.apply(p, batch["target"])
-            )
-
-        g_ref = jax.tree_util.tree_leaves_with_path(
-            jax.grad(loss(net))(params)
-        )
-        g_got = jax.tree_util.tree_leaves(jax.grad(loss(fused))(params))
-        assert len(g_ref) == len(g_got)
-        for (path, a), b in zip(g_ref, g_got):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=2e-3, atol=2e-5,
-                err_msg=str(path),
-            )
 
     def test_resnet_encoder_variant(self, batch):
         """disp_encoder="resnet" (SURVEY R5 ResNet variant): identical
@@ -327,27 +212,31 @@ class TestFlowNet:
                 np.asarray(got), np.asarray(ref), atol=1e-5
             )
 
-    def test_cost_volume_pallas_rows_matches_slices(self):
-        """One-kernel rows-layout Pallas formulation == slice form
-        (interpret mode on CPU), including non-square dims and odd
-        widths where the column-wrap masks matter."""
-        from davo_tpu.kernels.costvol import cost_volume_pallas_rows
+    def test_cost_volume_pallas_matches_slices(self):
+        """The Triton correlation kernel == slice form (interpret mode
+        on CPU), including non-square dims and odd widths where the
+        tile-edge masks matter."""
+        from davo_tpu.kernels.costvol import cost_volume_pallas
 
         rng = np.random.default_rng(6)
         for H, W, C, s in ((8, 8, 32, 2), (6, 26, 16, 4), (5, 13, 8, 3)):
             f1 = jnp.asarray(rng.normal(size=(2, H, W, C)), jnp.float32)
             f2 = jnp.asarray(rng.normal(size=(2, H, W, C)), jnp.float32)
             ref = cost_volume(f1, f2, search=s)
-            got = cost_volume_pallas_rows(f1, f2, search=s)
+            got = cost_volume_pallas(f1, f2, search=s, interpret=True)
             assert got.shape == ref.shape
             np.testing.assert_allclose(
                 np.asarray(got), np.asarray(ref), atol=1e-5
             )
 
-    def test_flownet_pallas_rows_impl_matches(self, batch):
-        """FlowNetLite(costvol_impl="pallas_rows") == the default
-        program to float tolerance (same params)."""
+    def test_flownet_pallas_impl_matches(self, batch, monkeypatch):
+        """FlowNetLite(costvol_impl="pallas") == the default program to
+        float tolerance (same params): as lowered here (the XLA
+        branch), and with the Triton kernel itself interpreted."""
         import dataclasses
+
+        from davo_tpu.kernels.costvol import cost_volume_pallas
+        from davo_tpu.models import flownet
 
         cfg = dataclasses.replace(CFG, costvol_feat_channels=8)
         model = FlowNetLite(cfg)
@@ -355,245 +244,20 @@ class TestFlowNet:
             jax.random.key(0), batch["target"], batch["sources"][:, 0]
         )
         ref = model.apply(params, batch["target"], batch["sources"][:, 0])
-        m2 = FlowNetLite(
-            dataclasses.replace(cfg, costvol_impl="pallas_rows")
-        )
+        m2 = FlowNetLite(dataclasses.replace(cfg, costvol_impl="pallas"))
         got = m2.apply(params, batch["target"], batch["sources"][:, 0])
-        for a, b in zip(ref, got):
+        monkeypatch.setitem(
+            flownet._COSTVOL, "pallas",
+            lambda a, b, s: cost_volume_pallas(a, b, s, interpret=True),
+        )
+        got_kernel = m2.apply(params, batch["target"], batch["sources"][:, 0])
+        for a, b, c in zip(ref, got, got_kernel):
             np.testing.assert_allclose(
                 np.asarray(a), np.asarray(b), atol=1e-4
             )
-
-    def test_fuse_estimator_matches_xla_path(self, batch):
-        """fuse_estimator=True (one Pallas kernel per estimator, rows
-        layout) == the XLA conv path on the SAME params, both with and
-        without the 1x1 bottleneck."""
-        import dataclasses
-
-        for extra in ({}, {"flow_est_bottleneck": 48}):
-            cfg = dataclasses.replace(CFG, **extra)
-            model = FlowNetLite(cfg)
-            params = model.init(
-                jax.random.key(0), batch["target"], batch["sources"][:, 0]
-            )
-            ref = model.apply(params, batch["target"], batch["sources"][:, 0])
-            fused = FlowNetLite(
-                dataclasses.replace(cfg, fuse_estimator=True)
-            )
-            got = fused.apply(params, batch["target"], batch["sources"][:, 0])
-            for a, b in zip(ref, got):
-                np.testing.assert_allclose(
-                    np.asarray(a), np.asarray(b), atol=5e-3
-                )
-
-    def test_fuse_estimator_train_grads_match_xla(self, batch):
-        """fuse_estimator_train (hand-written Pallas VJP) produces the
-        same flows AND parameter gradients as the XLA path."""
-        import dataclasses
-
-        model = FlowNetLite(CFG)
-        params = model.init(
-            jax.random.key(0), batch["target"], batch["sources"][:, 0]
-        )
-        fused = FlowNetLite(
-            dataclasses.replace(CFG, fuse_estimator_train=True)
-        )
-
-        def loss(m):
-            def f(p):
-                flows = m.apply(
-                    p, batch["target"], batch["sources"][:, 0]
-                )
-                return sum(jnp.sum(fl**2) for fl in flows)
-
-            return f
-
-        ref_flows = model.apply(
-            params, batch["target"], batch["sources"][:, 0]
-        )
-        got_flows = fused.apply(
-            params, batch["target"], batch["sources"][:, 0]
-        )
-        for a, b in zip(ref_flows, got_flows):
             np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), atol=5e-4
+                np.asarray(a), np.asarray(c), atol=1e-4
             )
-        g_ref = jax.grad(loss(model))(params)
-        g_got = jax.grad(loss(fused))(params)
-        leaves_r = jax.tree_util.tree_leaves_with_path(g_ref)
-        leaves_g = jax.tree_util.tree_leaves(g_got)
-        assert len(leaves_r) == len(leaves_g)
-        for (path, a), b in zip(leaves_r, leaves_g):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=2e-3, atol=2e-4,
-                err_msg=str(path),
-            )
-
-    def test_fuse_flow_level_train_grads_match_xla(self, batch):
-        """fuse_flow_level_train (whole-level hand-written VJP,
-        incl. the cost-volume transpose) produces the same flows and
-        parameter gradients as the XLA path — with and without the
-        learned correlation projection (grads must also flow through
-        cv_proj via df1c/df2c)."""
-        import dataclasses
-
-        for extra in ({}, {"costvol_feat_channels": 8}):
-            cfg = dataclasses.replace(CFG, **extra)
-            model = FlowNetLite(cfg)
-            params = model.init(
-                jax.random.key(0), batch["target"], batch["sources"][:, 0]
-            )
-            fused = FlowNetLite(
-                dataclasses.replace(cfg, fuse_flow_level_train=True)
-            )
-
-            def loss(m):
-                def f(p):
-                    flows = m.apply(
-                        p, batch["target"], batch["sources"][:, 0]
-                    )
-                    return sum(jnp.sum(fl**2) for fl in flows)
-
-                return f
-
-            got_flows = fused.apply(
-                params, batch["target"], batch["sources"][:, 0]
-            )
-            ref_flows = model.apply(
-                params, batch["target"], batch["sources"][:, 0]
-            )
-            for a, b in zip(ref_flows, got_flows):
-                np.testing.assert_allclose(
-                    np.asarray(a), np.asarray(b), atol=5e-4
-                )
-            g_ref = jax.tree_util.tree_leaves_with_path(
-                jax.grad(loss(model))(params)
-            )
-            g_got = jax.tree_util.tree_leaves(
-                jax.grad(loss(fused))(params)
-            )
-            assert len(g_ref) == len(g_got)
-            for (path, a), b in zip(g_ref, g_got):
-                np.testing.assert_allclose(
-                    np.asarray(a), np.asarray(b), rtol=2e-3, atol=2e-4,
-                    err_msg=f"{extra} {path}",
-                )
-
-    def test_fuse_pyramid_train_grads_match_xla(self, batch):
-        """fuse_pyramid_train (multi-output strided VJP): flows and
-        parameter grads — including the pyramid convs, which receive
-        cotangents through every tap — match the XLA path."""
-        import dataclasses
-
-        model = FlowNetLite(CFG)
-        params = model.init(
-            jax.random.key(0), batch["target"], batch["sources"][:, 0]
-        )
-        fused = FlowNetLite(
-            dataclasses.replace(CFG, fuse_pyramid_train=True)
-        )
-
-        def loss(m):
-            def f(p):
-                flows = m.apply(
-                    p, batch["target"], batch["sources"][:, 0]
-                )
-                return sum(jnp.sum(fl**2) for fl in flows)
-
-            return f
-
-        got = fused.apply(params, batch["target"], batch["sources"][:, 0])
-        ref = model.apply(params, batch["target"], batch["sources"][:, 0])
-        for a, b in zip(ref, got):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), atol=5e-4
-            )
-        g_ref = jax.tree_util.tree_leaves_with_path(
-            jax.grad(loss(model))(params)
-        )
-        g_got = jax.tree_util.tree_leaves(jax.grad(loss(fused))(params))
-        assert len(g_ref) == len(g_got)
-        for (path, a), b in zip(g_ref, g_got):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=2e-3, atol=2e-4,
-                err_msg=str(path),
-            )
-
-    def test_fused_train_grads_bf16_production_dtype(self, batch):
-        """The PRODUCTION compute dtype (bfloat16): all trainable
-        fused flags must differentiate without dtype errors and give
-        finite grads in the right structure (regression: the chain VJP
-        once returned an f32 dx cotangent for a bf16 primal, crashing
-        jax.grad under the default config)."""
-        import dataclasses
-
-        base = dataclasses.replace(CFG, compute_dtype="bfloat16")
-        for flag in (
-            "fuse_estimator_train",
-            "fuse_flow_level_train",
-            "fuse_pyramid_train",
-        ):
-            model = FlowNetLite(base)
-            params = model.init(
-                jax.random.key(0), batch["target"], batch["sources"][:, 0]
-            )
-            fused = FlowNetLite(
-                dataclasses.replace(base, **{flag: True})
-            )
-
-            def loss(p, m=fused):
-                flows = m.apply(
-                    p, batch["target"], batch["sources"][:, 0]
-                )
-                return sum(jnp.sum(fl**2) for fl in flows)
-
-            g = jax.grad(loss)(params)
-            leaves = jax.tree_util.tree_leaves(g)
-            assert leaves, flag
-            for leaf in leaves:
-                assert np.all(np.isfinite(np.asarray(leaf))), flag
-            assert any(
-                float(jnp.abs(leaf).max()) > 0 for leaf in leaves
-            ), flag
-
-    def test_fuse_pyramid_matches_xla_path(self, batch):
-        """fuse_pyramid=True (whole feature ladder as one multi-output
-        Pallas kernel) == the XLA path on the same params."""
-        import dataclasses
-
-        model = FlowNetLite(CFG)
-        params = model.init(
-            jax.random.key(0), batch["target"], batch["sources"][:, 0]
-        )
-        ref = model.apply(params, batch["target"], batch["sources"][:, 0])
-        fused = FlowNetLite(dataclasses.replace(CFG, fuse_pyramid=True))
-        got = fused.apply(params, batch["target"], batch["sources"][:, 0])
-        for a, b in zip(ref, got):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), atol=5e-3
-            )
-
-    def test_fuse_flow_level_matches_xla_path(self, batch):
-        """fuse_flow_level=True (costvol + relu + concat + estimator
-        chain as ONE kernel per level) == the XLA path on the same
-        params, with and without the learned correlation projection."""
-        import dataclasses
-
-        for extra in ({}, {"costvol_feat_channels": 8}):
-            cfg = dataclasses.replace(CFG, **extra)
-            model = FlowNetLite(cfg)
-            params = model.init(
-                jax.random.key(0), batch["target"], batch["sources"][:, 0]
-            )
-            ref = model.apply(params, batch["target"], batch["sources"][:, 0])
-            fused = FlowNetLite(
-                dataclasses.replace(cfg, fuse_flow_level=True)
-            )
-            got = fused.apply(params, batch["target"], batch["sources"][:, 0])
-            for a, b in zip(ref, got):
-                np.testing.assert_allclose(
-                    np.asarray(a), np.asarray(b), atol=5e-3
-                )
 
     def test_costvol_projection(self, batch):
         """costvol_feat_channels: shared cv_proj params exist, pyramid
@@ -700,55 +364,6 @@ class TestAttention:
         assert float(wmap[0, :4].max()) == 0.0
         assert float(wmap[0, 4:].min()) == 1.0
 
-    def test_fuse_attention_train_grads_match_xla(self, batch):
-        """fuse_attention_train (strided VJP): weights and grads match
-        the XLA path."""
-        import dataclasses
-
-        rng = np.random.default_rng(5)
-        flow = jnp.asarray(rng.normal(0, 2, (2, 64, 96, 2)), jnp.float32)
-        net = RegionAttention(CFG)
-        params = net.init(jax.random.key(0), flow)
-        fused = RegionAttention(
-            dataclasses.replace(CFG, fuse_attention_train=True)
-        )
-        np.testing.assert_allclose(
-            np.asarray(fused.apply(params, flow)),
-            np.asarray(net.apply(params, flow)),
-            atol=5e-5,
-        )
-
-        def loss(m):
-            return lambda p: jnp.sum(m.apply(p, flow) ** 2)
-
-        g_ref = jax.tree_util.tree_leaves_with_path(
-            jax.grad(loss(net))(params)
-        )
-        g_got = jax.tree_util.tree_leaves(jax.grad(loss(fused))(params))
-        for (path, a), b in zip(g_ref, g_got):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=2e-3, atol=1e-6,
-                err_msg=str(path),
-            )
-
-    def test_fuse_attention_matches_xla_path(self, batch):
-        """fuse_attention=True (conv stack as one s2d Pallas kernel)
-        == the XLA path on the SAME params."""
-        import dataclasses
-
-        rng = np.random.default_rng(3)
-        flow = jnp.asarray(rng.normal(0, 2, (2, 64, 96, 2)), jnp.float32)
-        net = RegionAttention(CFG)
-        params = net.init(jax.random.key(0), flow)
-        ref = net.apply(params, flow)
-        got = RegionAttention(
-            dataclasses.replace(CFG, fuse_attention=True)
-        ).apply(params, flow)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(ref), atol=5e-5
-        )
-
-
 class TestDavoModel:
     @pytest.mark.parametrize("attention", ["none", "flow", "flow_seg"])
     def test_variants(self, batch, attention):
@@ -774,50 +389,6 @@ class TestDavoModel:
             assert len(out["flows"]) == 2
         if attention == "flow_seg":
             assert out["attn"].shape == (2, 2, 19)
-
-    def test_all_fused_serving_matches_xla(self, batch):
-        """The full serving-fused config (fuse_flow_level +
-        fuse_pose_encoder + fuse_attention) == the XLA path on the
-        same params — the whole-model combination the on-chip probe
-        promotes into BENCH_FLAGS.json."""
-        import dataclasses
-
-        cfg = ModelConfig(
-            img_height=64,
-            img_width=96,
-            pose_channels=(8, 12, 16, 16),
-            disp_channels=(8, 12, 16, 16),
-            flow_levels=3,
-            flow_search_range=2,
-            attention="flow_seg",
-            compute_dtype="float32",
-        )
-        model = DavoModel(cfg)
-        params = model.init(
-            jax.random.key(0), batch["target"], batch["sources"],
-            seg=batch["seg"],
-        )
-        ref = model.apply(
-            params, batch["target"], batch["sources"], seg=batch["seg"]
-        )
-        fused = DavoModel(
-            dataclasses.replace(
-                cfg,
-                fuse_flow_level=True,
-                fuse_pyramid=True,
-                fuse_pose_encoder=True,
-                fuse_attention=True,
-            )
-        )
-        got = fused.apply(
-            params, batch["target"], batch["sources"], seg=batch["seg"]
-        )
-        np.testing.assert_allclose(
-            np.asarray(got["poses"]), np.asarray(ref["poses"]), atol=1e-4
-        )
-        np.testing.assert_allclose(
-            np.asarray(got["attn"]), np.asarray(ref["attn"]), atol=1e-4
-        )
 
     def test_flow_fb_cue_variant(self, batch):
         """attention_cue="flow_fb": forward runs, outputs keep their

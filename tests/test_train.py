@@ -125,7 +125,7 @@ class TestLosses:
         assert abs(c - d) > 1e-4
 
     def test_no_empty_mask_degeneracy(self, seq):
-        """Regression (r2 TPU collapse): a pose that warps EVERYTHING
+        """Regression (r2 training collapse): a pose that warps EVERYTHING
         out of frame must not be a photometric optimum. The masked
         variant rewards it (loss -> ~0 as the valid count empties);
         the border default keeps it penalized above the GT-pose loss."""
@@ -494,7 +494,6 @@ class TestTrainStep:
         state, _ = step(state, batch)
         mngr = make_checkpoint_manager(str(tmp_path / "ckpt"))
         save_checkpoint(mngr, state)
-        mngr.wait_until_finished()
         _, template, _ = create_state(cfg, jax.random.key(1), batch)
         restored = restore_checkpoint(mngr, template)
         assert restored is not None
@@ -616,10 +615,9 @@ class TestScanServing:
 
 
 class TestWarpGatherConfig:
-    """TrainConfig.warp_gather -> core/warp process default resolution
+    """TrainConfig.warp_gather -> core/warp policy resolution
     (train/loop._apply_warp_config): explicit config > DAVO_WARP_GATHER
-    env > per-backend auto ("take4" on CPU; the TPU branch is
-    _AUTO_TPU_GATHER, gated by the r5 on-chip quality artifact)."""
+    env > auto ("banded", gated by the r5 quality artifact)."""
 
     def _cfg(self, **kw):
         return Config(train=TrainConfig(**kw))
@@ -645,36 +643,25 @@ class TestWarpGatherConfig:
         _apply_warp_config(self._cfg(warp_gather="auto"))
         assert warp_mod._DEFAULT_GATHER == "block"
 
-    def test_auto_on_cpu_is_exact_take4(self, monkeypatch):
+    def test_auto_is_banded(self, monkeypatch):
+        """The r5 twin-arm quality verdict (results_r5_warp_gate.json at cf6389d
+        at cf6389d): auto resolves to the band clamp at the gated band
+        on every backend."""
         from davo_tpu.core import warp as warp_mod
         from davo_tpu.train.loop import _apply_warp_config
 
         monkeypatch.delenv("DAVO_WARP_GATHER", raising=False)
-        monkeypatch.setattr(warp_mod, "_DEFAULT_GATHER", "banded")
-        _apply_warp_config(self._cfg())
-        assert jax.default_backend() == "cpu"
-        assert warp_mod._DEFAULT_GATHER == "take4"
-
-    def test_auto_on_tpu_is_banded(self, monkeypatch):
-        """The r5 gate verdict (results_r5_warp_gate.json): auto on a
-        TPU backend resolves to the banded kernel at the gated band."""
-        from davo_tpu.core import warp as warp_mod
-        from davo_tpu.train import loop as loop_mod
-
-        monkeypatch.delenv("DAVO_WARP_GATHER", raising=False)
         monkeypatch.setattr(warp_mod, "_DEFAULT_GATHER", "take4")
-        monkeypatch.setattr(
-            loop_mod.jax, "default_backend", lambda: "tpu"
-        )
-        loop_mod._apply_warp_config(self._cfg(warp_gather="auto"))
+        _apply_warp_config(self._cfg(warp_gather="auto"))
         assert warp_mod._DEFAULT_GATHER == "banded"
         assert warp_mod._BAND == (4, 16)
 
     def test_banded_gather_step_runs_and_learns(self, dataset):
-        """The flipped TPU-production path (warp_gather="banded")
-        through a REAL train step: interpret-mode Pallas on CPU, tiny
-        band. Guards the config->kernel plumbing (band tuple, VJP
-        wiring through every loss warp) that unit kernel tests miss."""
+        """The default training path (warp_gather="banded") through a
+        REAL train step, tiny band. Guards the config->warp plumbing
+        (band tuple, gradients through every loss warp) that unit warp
+        tests miss, and that the policy applies only while the step is
+        traced: the process default is left as it was."""
         cfg = Config(
             model=TINY,
             train=TrainConfig(
@@ -689,16 +676,25 @@ class TestWarpGatherConfig:
         batch = next(dataset.batches(steps=1))
         batch = {k: jnp.asarray(v) for k, v in batch.items()}
         model, state, tx = create_state(cfg, jax.random.key(0), batch)
-        step = make_train_step(model, tx, cfg)
         from davo_tpu.core import warp as warp_mod
 
-        assert warp_mod._DEFAULT_GATHER == "banded"
-        assert warp_mod._BAND == (2, 4)
+        before = (warp_mod._DEFAULT_GATHER, warp_mod._BAND)
+        seen = []
+        real = warp_mod._bilinear_sample_take4
+
+        def spy(img, coords, fill, band=None):
+            seen.append(band)
+            return real(img, coords, fill, band=band)
+
+        warp_mod._bilinear_sample_take4 = spy
         try:
+            step = make_train_step(model, tx, cfg)
             losses = []
             for _ in range(3):
                 state, metrics = step(state, batch)
                 losses.append(float(metrics["total"]))
-            assert np.isfinite(losses).all()
         finally:
-            warp_mod.configure("take4", (4, 16))
+            warp_mod._bilinear_sample_take4 = real
+        assert np.isfinite(losses).all()
+        assert seen and all(b == (2, 4) for b in seen)
+        assert (warp_mod._DEFAULT_GATHER, warp_mod._BAND) == before

@@ -73,11 +73,10 @@ class TestBilinearSample:
         assert float(out[0, 0, 0, 0]) == 0.5
 
     def test_block_gather_matches_take4(self, rng):
-        """The production (2,2,C)-block lax.gather formulation equals
-        the four-tap formulation — values, masks, and d/d(coords) —
-        including far-out-of-range coordinates (both clamp to the
-        border pixel with total weight 1). Hardware A/B:
-        results_r4_warp_probe.json (1.39x fwd / 1.30x grad)."""
+        """The (2,2,C)-block lax.gather formulation equals the four-tap
+        formulation — values, masks, and d/d(coords) — including
+        far-out-of-range coordinates (both clamp to the border pixel
+        with total weight 1)."""
         img = jnp.asarray(rng.uniform(size=(2, 9, 13, 3)), jnp.float32)
         # Coordinates spanning in-range, boundary, and far OOB.
         coords = jnp.asarray(
@@ -172,7 +171,7 @@ class TestFlowWarp:
 
 class TestFlowWarpSeparable:
     """Gather-free two-pass warp (core/warp.flow_warp_separable): the
-    TPU-fast path used inside the flow pyramid. Exact when either flow
+    path used inside the flow pyramid. Exact when either flow
     component is integer/uniform; near-exact on smooth fields."""
 
     def test_horizontal_flow_exact(self, rng):
